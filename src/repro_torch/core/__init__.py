@@ -1,0 +1,30 @@
+"""RIBBON core in PyTorch: Bayesian optimisation over heterogeneous pools.
+
+Counterpart of ``repro/core``.  Public API:
+    SearchSpace, JointSearchSpace, estimate_upper_bounds
+    RibbonOptimizer, run_ribbon
+    ribbon_objective, ribbon_objective_batch
+    GaussianProcess, matern52, rounded_matern52
+    expected_improvement, select_next, select_batch
+    PruneSet, apply_prune_rules, apply_prune_rules_joint
+    SearchTrace, Evaluation
+"""
+
+from .acquisition import expected_improvement, select_batch, select_next
+from .gp import GaussianProcess, matern52, round_counts, rounded_matern52
+from .objective import ribbon_objective, ribbon_objective_batch
+from .pruning import PruneSet, apply_prune_rules, apply_prune_rules_joint
+from .ribbon import RibbonOptimizer, run_ribbon
+from .search_space import (JointSearchSpace, SearchSpace,
+                           estimate_upper_bounds)
+from .trace import Evaluation, SearchTrace
+
+__all__ = [
+    "SearchSpace", "JointSearchSpace", "estimate_upper_bounds",
+    "RibbonOptimizer", "run_ribbon",
+    "ribbon_objective", "ribbon_objective_batch",
+    "GaussianProcess", "matern52", "rounded_matern52", "round_counts",
+    "expected_improvement", "select_next", "select_batch",
+    "PruneSet", "apply_prune_rules", "apply_prune_rules_joint",
+    "SearchTrace", "Evaluation",
+]

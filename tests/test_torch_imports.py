@@ -1,0 +1,95 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points refuse to fall back to the CPU by themselves."""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_modules():
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        parts = path.relative_to(PORT.parent).with_suffix("").parts
+        mods.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return mods
+
+
+def _env(**extra):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return {**env, **extra}
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_reference():
+    modules = _port_modules()
+    code = (
+        "import importlib, importlib.util, json, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "spec = importlib.util.spec_from_file_location(\n"
+        f"    'chip_smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=_env(PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(modules) >= 15 and set(modules) <= set(loaded)
+    bad = [m for m in loaded if m == "jax" or m.startswith(("jax.", "jaxlib"))
+           or m == "repro" or m.startswith("repro.")]
+    assert bad == []
+
+
+def _entry_points():
+    from repro_torch.core import RibbonOptimizer, SearchSpace, run_ribbon
+    from repro_torch.core.gp import GaussianProcess
+    from repro_torch.models.paper_models import make_random_batch, mtwnd_init
+    from repro_torch.serving.engine import DEFAULT_CELLS, ClusterEngine
+    space = SearchSpace((2, 2), (1.0, 2.0))
+    return {
+        "ClusterEngine": lambda: ClusterEngine("mtwnd", DEFAULT_CELLS),
+        "RibbonOptimizer": lambda: RibbonOptimizer(space),
+        "run_ribbon": lambda: run_ribbon(space, lambda c: 1.0, budget=2),
+        "GaussianProcess": lambda: GaussianProcess(2, (2, 2)),
+        "mtwnd_init": lambda: mtwnd_init(torch.Generator(), "smoke"),
+        "make_random_batch": lambda: make_random_batch("mtwnd", "smoke", 2),
+    }
+
+
+@pytest.mark.parametrize("name", ["ClusterEngine", "RibbonOptimizer",
+                                  "run_ribbon", "GaussianProcess",
+                                  "mtwnd_init", "make_random_batch"])
+def test_entry_point_without_device_raises_without_cuda(name):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _entry_points()[name]()
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300,
+                         env=_env())
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_outside_the_repository(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300,
+                         env=_env())
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

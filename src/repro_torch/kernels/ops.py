@@ -3,27 +3,60 @@
 Each function checks its inputs once, then takes the kernel's plain
 version for tensors on the CPU and launches the CUDA kernel for tensors on
 a card; there is no fallback from one to the other.  Counterpart of
-``repro/kernels/ops.py``.
+``repro/kernels/ops.py``.  Unlike the reference wrappers, these move no
+axes and pad nothing (not the head dim to 128 lanes, not S or T to
+blocks): the kernels read the public layouts through their strides.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .embedding_bag import check_inputs, embedding_bag_cuda
-from .ref import embedding_bag_ref
+from . import decode_attention as _decode
+from . import embedding_bag as _bag
+from . import flash_attention as _flash
+from .ref import decode_attention_ref, embedding_bag_ref, flash_attention_ref
+
+
+def _route(name: str, device: torch.device):
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {device}")
+    return device.type == "cuda"
 
 
 def embedding_bag(indices: torch.Tensor, table: torch.Tensor,
                   weights: torch.Tensor | None = None) -> torch.Tensor:
-    """indices (n_bags, bag) int32; table (V, D) → (n_bags, D).
+    """indices (n_bags, bag) int32; table (V, D) → (n_bags, D)."""
+    _bag.check_inputs(indices, table, weights)
+    if _route("embedding_bag", table.device):
+        return _bag.embedding_bag_cuda(indices, table, weights)
+    return embedding_bag_ref(indices, table, weights)
 
-    Unlike the reference wrapper, the table is not padded to 128 lanes:
-    the kernel reads D-wide rows directly.
-    """
-    check_inputs(indices, table, weights)
-    if table.device.type == "cpu":
-        return embedding_bag_ref(indices, table, weights)
-    if table.device.type == "cuda":
-        return embedding_bag_cuda(indices, table, weights)
-    raise ValueError(f"embedding_bag runs on cpu or cuda, not {table.device}")
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: float | None = None) -> torch.Tensor:
+    """q (B, S, H, D); k, v (B, T, KH, D) → (B, S, H, D).  GQA: query head
+    h reads KV head h // (H // KH).  Masks come from indices (query i, key
+    j), causal and/or a sliding window of ``window`` keys; ``scale``
+    defaults to D ** -0.5."""
+    _flash.check_inputs(q, k, v, window=window)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if _route("flash_attention", q.device):
+        return _flash.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window, scale=scale)
+    return flash_attention_ref(q, k, v, causal=causal, window=window,
+                               scale=scale)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: torch.Tensor, *,
+                     scale: float | None = None) -> torch.Tensor:
+    """q (B, 1, H, D); k, v (B, T, KH, D), a cache layer; pos (T,) int32,
+    the ring's position table (slot j counts iff pos[j] >= 0) →
+    (B, 1, H, D).  ``scale`` defaults to D ** -0.5."""
+    _decode.check_inputs(q, k, v, pos)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if _route("decode_attention", q.device):
+        return _decode.decode_attention_cuda(q, k, v, pos, scale=scale)
+    return decode_attention_ref(q, k, v, pos, scale=scale)

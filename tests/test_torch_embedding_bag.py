@@ -157,11 +157,13 @@ def test_plain_adds_in_order_from_zero():
 
 def test_build_targets_hopper_from_repo_sources():
     from repro_torch.kernels import _build
-    assert _build.sources() == ["embedding_bag"]
+    assert _build.sources() == ["decode_attention", "embedding_bag",
+                                "flash_attention"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    path = _build.library_path("embedding_bag")
-    assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
-    assert path == _build.library_path("embedding_bag")
+    for name in _build.sources():
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
+        assert path == _build.library_path(name)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

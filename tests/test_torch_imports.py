@@ -52,10 +52,13 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
 
 def _entry_points():
     from repro_torch.core import RibbonOptimizer, SearchSpace, run_ribbon
+    from repro_torch.configs import get_arch
     from repro_torch.core.gp import GaussianProcess
     from repro_torch.models.paper_models import make_random_batch, mtwnd_init
+    from repro_torch.models.transformer import get_model, lm_from_numpy
     from repro_torch.serving.engine import DEFAULT_CELLS, ClusterEngine
     space = SearchSpace((2, 2), (1.0, 2.0))
+    lm = get_model(get_arch("qwen2.5-3b").reduced())
     return {
         "ClusterEngine": lambda: ClusterEngine("mtwnd", DEFAULT_CELLS),
         "RibbonOptimizer": lambda: RibbonOptimizer(space),
@@ -63,12 +66,17 @@ def _entry_points():
         "GaussianProcess": lambda: GaussianProcess(2, (2, 2)),
         "mtwnd_init": lambda: mtwnd_init(torch.Generator(), "smoke"),
         "make_random_batch": lambda: make_random_batch("mtwnd", "smoke", 2),
+        "lm_init_params": lambda: lm.init_params(torch.Generator()),
+        "lm_init_cache": lambda: lm.init_cache(1, 8),
+        "lm_from_numpy": lambda: lm_from_numpy(lm.cfg, {}),
     }
 
 
 @pytest.mark.parametrize("name", ["ClusterEngine", "RibbonOptimizer",
                                   "run_ribbon", "GaussianProcess",
-                                  "mtwnd_init", "make_random_batch"])
+                                  "mtwnd_init", "make_random_batch",
+                                  "lm_init_params", "lm_init_cache",
+                                  "lm_from_numpy"])
 def test_entry_point_without_device_raises_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card: the default device is valid")

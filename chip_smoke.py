@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Drives the port (``src/repro_torch``) on its two main paths, the MT-WND
-serving pool at full width and the qwen2.5-3b decoder LM's serving path at
-full width and depth, in phases that each print a line and raise on
-failure:
+Drives the port (``src/repro_torch``) on its main paths: the MT-WND
+serving pool at full width, and the serving paths of three LMs at full
+width and depth (qwen2.5-3b, dense GQA; mamba2-130m, Mamba-2 SSM;
+zamba2-2.7b, Mamba-2 with a shared attention block), in phases that each
+print a line and raise on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles every CUDA kernel from ``src/repro_torch/csrc`` (nvcc,
@@ -18,7 +19,10 @@ failure:
    non-causal S 333 and packed q/k/v views; decode_attention at the decode
    step's shape (B 4, T 2048, KH 2, G 8, D 128, the last 48 slots empty)
    and T 1999, MQA with D 80, MHA, empty slots at the front and a cache
-   with no valid slot; each in fp32 and bf16;
+   with no valid slot; ssd_scan at mamba2-130m's and zamba2-2.7b's prefill
+   shapes (B 4, L 2048; H 24, N 128 and H 80, N 64; P 64, G 1) with x, b
+   and c strided views of one packed conv output, a ragged L 2000, L 1,
+   G 2 and a ragged P tile; each in fp32 and bf16, y and the final state;
 4. MT-WND full-width forward, kernel path against plain path, per batch
    bucket 1..32, with forward times: eager (CUDA events, median of 30) and
    device-only (replayed from a CUDA graph, so without the host's launch
@@ -27,37 +31,48 @@ failure:
    requests; prints the QoS rate and service percentiles;
 6. RIBBON's ask/tell loop over the live pool (up to 16 rounds), and its GP
    posterior on the card against the same fit on the CPU;
-7. LM serving: qwen2.5-3b at full width and depth (36 layers) with random
-   weights from a seed serves 4 requests of 2000 prompt tokens: prefill
-   (max_len 2048) then 48 greedy decode steps.  First in fp32, the kernel
-   path against the plain path teacher-forced on the kernel path's tokens
-   (prefill and every step's logits within 1e-4 x max |logits|, the same
-   greedy tokens); then in bf16, the reference's serving type, twice, with
-   prefill ms, decode ms per step and tokens/s of the second, and the
-   kernel path's agreement with the plain path's greedy tokens (printed);
-   then device-only prefill and decode-step times from CUDA graphs.
+7. LM serving, for each of the three LMs, with random weights from a seed:
+   4 requests (2000 prompt tokens, max_len 2048 for qwen2.5-3b; 2048 and
+   2096 for the SSM and hybrid LMs, so their plain path runs the
+   reference's 256-token chunks), prefill then 48 greedy decode steps.
+   First in fp32, the kernel path against the plain path teacher-forced on
+   the kernel path's tokens (prefill and every step's logits within 1e-4 x
+   max |logits|, the same greedy tokens); then in bf16, the reference's
+   serving type, twice, with prefill ms, decode ms per step and tokens/s
+   of the second, the kernel path's agreement with the plain path's greedy
+   tokens, and each bf16 path's agreement with the fp32 kernel path's
+   tokens (printed); then device-only prefill and decode-step times from
+   CUDA graphs.  For the SSM and hybrid LMs the fp32 gate widens by the
+   plain path's own distance from a run whose scan is float64.
 
 Launch counts are set to 0 just before phase 5 and read after phase 6
 (every MT-WND forward makes 8 embedding-bag launches), and set to 0 again
-just before phase 7 and read after its serving runs (one flash-attention
-launch per layer per prefill, one decode-attention launch per layer per
-decode step).  Then one JSON line gives each kernel's launches, error
-against its plain version and times at its path's shape: kernel, plain
-version and library call device-only (CUDA graph) and eager, and the bound
-(bytes over the card's memory rate or flops over its bf16 tensor rate,
-whichever is larger).  The last line is ``{"ok": true, "device": {...}}``.
-Float32 matrix products run in full float32 (TF32 off), as the JAX
-reference computes.  Exits non-zero, with no result line, without a card
-or outside the repository.
+just before each LM's serving runs and read just after them (qwen2.5-3b:
+one flash-attention launch per layer per prefill and one decode-attention
+launch per layer per step; mamba2-130m: one SSD-scan launch per layer per
+prefill; zamba2-2.7b: one SSD-scan launch per Mamba-2 layer and one
+flash-attention launch per shared-block use per prefill, one
+decode-attention launch per shared-block use per step).  Then one JSON
+line gives each kernel's launches, error against its plain version and
+times at its path's shape: kernel, plain version and library call
+device-only (CUDA graph) and eager, and the bound (bytes over the card's
+memory rate or flops over its bf16 tensor rate, whichever is larger).  The
+last line is ``{"ok": true, "device": {...}}``.  Float32 matrix products
+and convolutions run in full float32 (TF32 off), as the JAX reference
+computes.  Exits non-zero, with no result line, without a card or outside
+the repository.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -73,9 +88,13 @@ from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: 
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
-                                     embedding_bag_ref, flash_attention_ref)
+                                     embedding_bag_ref, flash_attention_ref,
+                                     per_head, ssd_scan_ref)
+from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step)
+from repro_torch.models import ssm as ssm_module  # noqa: E402
 from repro_torch.models.paper_models import (MTWND_PRESETS,  # noqa: E402
                                              make_random_batch, mtwnd_apply,
                                              mtwnd_init)
@@ -125,9 +144,52 @@ DECODE_CASES = [("decode", 4, 2048, 2, 8, 128, "tail", 48),
                 ("T 50, one split", 2, 50, 2, 8, 128, "tail", 3),
                 ("ring wrapped", 4, 2048, 2, 8, 128, "head", 100),
                 ("no valid slot", 1, 300, 1, 4, 128, "all", 300)]
-LM_ARCH = "qwen2.5-3b"
-LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_STEPS = 4, 2000, 2048, 48
-LM_TOL = 1e-4                  # kernel vs plain path, x max |logits|, fp32
+# SSD scan vs its plain version (the token-by-token recurrence), relative
+# to max |want|.  fp32: the two sum the same fp32 products in another
+# order (the kernel's running sum of dt·A is fp64): 9.2e-7 seen; a chunk
+# left out moves y by O(1).
+SSD_F32_TOL = 2e-5
+# bf16, y against the plain bf16 version: two bf16 steps at the top.  Also
+# against the plain version in fp32 on the same inputs ("exact"): the
+# kernel rounds the score matrix to bf16 once more than the plain version,
+# so its max |diff| may exceed the plain version's by one bf16 step at
+# max |exact| and its mean |diff| by 2^-9 x mean |exact|.  A left-out
+# 64-row chunk of 2048 moves the mean |diff| by mean |y| / 32, 15x that.
+SSD_BF16_TOL = 2 ** -6
+SSD_MEAN_SLACK = 2 ** -9
+# (label, B, L, H, P, G, N, x/b/c as views of one packed tensor)
+SSD_CASES = [("mamba2-130m prefill", 4, 2048, 24, 64, 1, 128, True),
+             ("zamba2-2.7b prefill", 4, 2048, 80, 64, 1, 64, True),
+             ("ragged L 2000", 2, 2000, 8, 64, 1, 128, False),
+             ("L 1", 2, 1, 8, 64, 1, 128, False),
+             ("G 2, H 8", 2, 300, 8, 64, 2, 64, False),
+             ("P 80, N 32", 1, 130, 4, 80, 1, 32, False)]
+# fp32 kernel path vs plain path, x max |logits|; for the SSM and hybrid
+# LMs widened by the plain path's own distance from its scan in float64,
+# measured in the same run (see lm_fp32): at zamba2-2.7b's 54 layers each
+# fp32 scan lies up to about 2e-4 from exact.
+LM_TOL = 1e-4
+
+
+class LMRun(NamedTuple):
+    """One LM's serving run and the kernel launches each prefill and each
+    decode step must make on its kernel path."""
+    arch: str
+    batch: int
+    prompt: int
+    max_len: int
+    steps: int
+    per_prefill: dict
+    per_step: dict
+
+
+LM_RUNS = [
+    LMRun("qwen2.5-3b", 4, 2000, 2048, 48,
+          {"flash_attention": 36}, {"decode_attention": 36}),
+    LMRun("mamba2-130m", 4, 2048, 2096, 48, {"ssd_scan": 24}, {}),
+    LMRun("zamba2-2.7b", 4, 2048, 2096, 48,
+          {"ssd_scan": 54, "flash_attention": 9}, {"decode_attention": 9}),
+]
 
 
 def phase(name: str, msg: str) -> None:
@@ -346,6 +408,83 @@ def attention_phase() -> dict:
     return worst
 
 
+def _ssd_inputs(gen, case, dtype):
+    """x, dt, a_log, b, c at a case's shape: x, b and c ~ N(0, 0.5^2) as
+    views of one packed (B, L, H·P + 2·G·N) tensor, as the model's conv
+    output passes them (contiguous copies when not ``packed``);
+    dt = softplus(N(0, 1)); a_log = log(linspace(1, 16, H)), as the model
+    initialises it."""
+    _, b, l, h, p, g, n, packed = case
+    xbc = _normal(gen, (b, l, h * p + 2 * g * n), dtype)
+    x = xbc[..., :h * p].reshape(b, l, h, p)
+    bm = xbc[..., h * p:h * p + g * n].reshape(b, l, g, n)
+    cm = xbc[..., h * p + g * n:].reshape(b, l, g, n)
+    if not packed:
+        x, bm, cm = x.contiguous(), bm.contiguous(), cm.contiguous()
+    dt = F.softplus(torch.randn((b, l, h), generator=gen, device="cuda"))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+    return x, dt, a_log, bm, cm
+
+
+def _ssd_gate(name: str, inputs) -> tuple[float, float]:
+    """Run the kernel and hold its (y, state) against the plain version's:
+    each within SSD_F32_TOL x max |want| (y within SSD_BF16_TOL in bf16),
+    and in bf16 against the plain version in fp32 on the same inputs (see
+    SSD_BF16_TOL).  Returns y's max |diff| and the largest relative one."""
+    x, dt, a_log, b, c = inputs
+    got = ops.ssd_scan(x, dt, a_log, b, c)
+    want = ssd_scan_ref(x, dt, a_log, b, c)
+    torch.cuda.synchronize()
+    rels = []
+    for part, g, w in (("y", got[0], want[0]), ("state", got[1], want[1])):
+        if g.shape != w.shape or g.dtype != w.dtype or \
+                not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: bad {part} {tuple(g.shape)} "
+                                 f"{g.dtype}")
+        tol = SSD_BF16_TOL if g.dtype == torch.bfloat16 else SSD_F32_TOL
+        top = w.float().abs().max().item()
+        rels.append((g.float() - w.float()).abs().max().item() / top)
+        if not rels[-1] <= tol:
+            raise AssertionError(f"{name}: {part} max |diff| {rels[-1]} x "
+                                 f"max |want| > {tol}")
+    if x.dtype == torch.bfloat16:
+        exact = ssd_scan_ref(x.float(), dt, a_log, b.float(), c.float())[0]
+        mine = (got[0].float() - exact).abs()
+        plain = (want[0].float() - exact).abs()
+        top = exact.abs().max().item()
+        step = 2.0 ** (math.floor(math.log2(top)) - 7)   # bf16 spacing there
+        for stat, slack in ((torch.max, step), (torch.mean, SSD_MEAN_SLACK *
+                                                exact.abs().mean().item())):
+            a, ref = stat(mine).item(), stat(plain).item()
+            if not a <= ref + slack:
+                raise AssertionError(
+                    f"{name}: {stat.__name__} |diff| to fp32 {a} > the plain "
+                    f"version's {ref} + {slack}")
+    return (got[0].float() - want[0].float()).abs().max().item(), max(rels)
+
+
+def ssd_phase() -> dict:
+    """ssd_scan against its plain version; returns per type the largest
+    y error, absolute and relative to max |want|."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in SSD_CASES:
+            err, rel = _ssd_gate(f"ssd_scan {case[0]} {dtype}",
+                                 _ssd_inputs(gen, case, dtype))
+            a, r = worst.get(dtype, (0.0, 0.0))
+            worst[dtype] = (max(a, err), max(r, rel))
+    f32, bf16 = worst[torch.float32], worst[torch.bfloat16]
+    phase("kernel", f"ssd_scan vs plain: {2 * len(SSD_CASES)} cases "
+                    f"({', '.join(c[0] for c in SSD_CASES)}; fp32 and bf16; "
+                    f"y and final state) agree, max |diff| {f32[1]:.3g} fp32, "
+                    f"{bf16[1]:.3g} bf16 x max |want| (gates {SSD_F32_TOL}, "
+                    f"{SSD_BF16_TOL}; bf16 max |diff| to fp32 within one bf16 "
+                    f"step at the top of the plain version's, mean within "
+                    f"{SSD_MEAN_SLACK} x mean |y|)")
+    return worst
+
+
 def forward_phase() -> None:
     """MT-WND full width, kernel path vs plain path per bucket."""
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -428,46 +567,110 @@ def _greedy(logits):
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
 
 
-def _lm_gate(name: str, got, want) -> float:
+def _rel(got, want) -> float:
+    """max |got - want| over max |got|."""
+    return (got - want).abs().max().item() / got.abs().max().item()
+
+
+def _lm_gate(name: str, got, want, tol: float) -> float:
     """Kernel path's logits against the plain path's: finite, within
-    LM_TOL x max |logits|, the same greedy tokens.  Returns the relative
+    tol x max |logits|, the same greedy tokens.  Returns the relative
     difference."""
     if not torch.isfinite(got).all():
         raise AssertionError(f"LM {name}: non-finite logits")
-    diff = (got - want).abs().max().item()
-    top = got.abs().max().item()
-    if not diff <= LM_TOL * top:
-        raise AssertionError(f"LM {name}: max |diff| {diff} > {LM_TOL} x "
-                             f"max |logits| {top}")
+    rel = _rel(got, want)
+    if not rel <= tol:
+        raise AssertionError(f"LM {name}: max |diff| {rel} x max |logits| "
+                             f"> {tol}")
     if not torch.equal(_greedy(got), _greedy(want)):
         raise AssertionError(f"LM {name}: greedy tokens differ")
-    return diff / top
+    return rel
 
 
-def lm_fp32(api, params, tokens, prefill_step) -> None:
+def _scan_fp64(x, dt, a_log, b, c, chunk=None):
+    """The SSD scan token by token in float64 (``chunk`` is ignored): the
+    exact side of the plain path's own rounding error."""
+    h = x.shape[2]
+    decay = torch.exp(dt.double() * -torch.exp(a_log.double()))
+    xdt = x.double() * dt.double()[..., None]
+    bh, ch = per_head(b.double(), h, 2), per_head(c.double(), h, 2)
+    state = torch.zeros((x.shape[0], h, x.shape[3], b.shape[3]),
+                        dtype=torch.float64, device=x.device)
+    ys = []
+    for t in range(x.shape[1]):
+        state = (state * decay[:, t, :, None, None]
+                 + xdt[:, t, :, :, None] * bh[:, t, :, None, :])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, ch[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), state.float()
+
+
+@contextmanager
+def plain_scan_in_fp64():
+    """Within: the plain path's scan (``ssm.ssd_chunked``) is
+    ``_scan_fp64``; nothing else of the path changes."""
+    chunked = ssm_module.ssd_chunked
+    ssm_module.ssd_chunked = _scan_fp64
+    try:
+        yield
+    finally:
+        ssm_module.ssd_chunked = chunked
+
+
+def lm_fp32(api, params, tokens, prefill_step, run: LMRun):
     """fp32 kernel path against the plain path, teacher-forced on the
-    kernel path's tokens."""
-    cache_k, logits_k = prefill_step(params, {"tokens": tokens})
-    cache_p, logits_p = api.prefill(params, tokens, LM_MAX_LEN,
-                                    use_kernel=False)
-    if logits_k.shape != (LM_BATCH, 1, api.cfg.vocab_size):
-        raise AssertionError(f"LM prefill logits {tuple(logits_k.shape)}")
-    worst = _lm_gate("fp32 prefill", logits_k, logits_p)
-    tok = _greedy(logits_k)
-    for i in range(LM_STEPS):
-        logits_k, cache_k = api.decode_step(params, cache_k, tok)
-        logits_p, cache_p = api.decode_step(params, cache_p, tok,
-                                            use_kernel=False)
-        worst = max(worst, _lm_gate(f"fp32 decode step {i}", logits_k,
-                                    logits_p))
-        tok = _greedy(logits_k)
-    phase("lm", f"{LM_ARCH} fp32, {LM_BATCH} x {LM_PROMPT} prompt tokens, "
-                f"{LM_STEPS} decode steps: kernel path vs plain path max "
-                f"|diff| {worst:.3g} x max |logits| (gate {LM_TOL}), the "
-                f"same greedy tokens at all {LM_STEPS + 1} positions")
+    kernel path's tokens, within LM_TOL x max |logits| and the same greedy
+    tokens.  For a model with Mamba-2 layers a third run, the plain path
+    with its scan in float64, measures how far the plain path's own fp32
+    scan lies from exact over the run; the gate widens by that much, since
+    two fp32 scans that round differently can each lie that far from exact.
+    A model without a scan keeps LM_TOL.  (Decode steps run no scan, so the
+    third run differs from the plain one only in its prefill.)  Returns the
+    kernel path's greedy tokens (B, 1 + steps)."""
+    names = ["kernel", "plain"]
+    if api.cfg.family in ("ssm", "hybrid"):
+        names.append("fp64 scan")
+
+    def prefill(name):
+        if name == "kernel":
+            return prefill_step(params, {"tokens": tokens})
+        with plain_scan_in_fp64() if name == "fp64 scan" else nullcontext():
+            return api.prefill(params, tokens, run.max_len, use_kernel=False)
+
+    caches, logits = {}, {}
+    for name in names:
+        caches[name], out = prefill(name)
+        logits[name] = [out]
+    if logits["kernel"][0].shape != (run.batch, 1, api.cfg.vocab_size):
+        raise AssertionError(f"LM prefill logits "
+                             f"{tuple(logits['kernel'][0].shape)}")
+    tok = _greedy(logits["kernel"][0])
+    for _ in range(run.steps):
+        for name in names:
+            out, caches[name] = api.decode_step(
+                params, caches[name], tok, use_kernel=name == "kernel")
+            logits[name].append(out)
+        tok = _greedy(logits["kernel"][-1])
+
+    def farthest(a, b):
+        return max(_rel(x, y) for x, y in zip(logits[a], logits[b]))
+
+    noise = farthest("plain", "fp64 scan") if len(names) == 3 else 0.0
+    worst = max(_lm_gate("fp32 prefill" if i == 0 else
+                         f"fp32 decode step {i - 1}", k, p, LM_TOL + noise)
+                for i, (k, p) in enumerate(zip(logits["kernel"],
+                                               logits["plain"])))
+    exact = "" if len(names) == 2 else (
+        f"; from the fp64 scan's run the plain path lies up to {noise:.3g}, "
+        f"the kernel path {farthest('kernel', 'fp64 scan'):.3g}")
+    phase("lm", f"{run.arch} fp32, {run.batch} x {run.prompt} prompt tokens, "
+                f"{run.steps} decode steps: kernel path vs plain path max "
+                f"|diff| {worst:.3g} x max |logits| (gate {LM_TOL} + "
+                f"{noise:.3g}){exact}; the same greedy tokens at all "
+                f"{run.steps + 1} positions")
+    return torch.cat([_greedy(out) for out in logits["kernel"]], dim=1)
 
 
-def lm_serve(params, tokens, prefill_step, serve_step):
+def lm_serve(params, tokens, prefill_step, serve_step, steps: int):
     """One bf16 serving run on the kernel path: prefill, then greedy decode
     steps; returns (prefill ms, decode ms per step, tokens (B, 1 + steps))."""
     torch.cuda.synchronize()
@@ -477,66 +680,122 @@ def lm_serve(params, tokens, prefill_step, serve_step):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     out = [tok]
-    for _ in range(LM_STEPS):
+    for _ in range(steps):
         tok, cache = serve_step(params, cache, tok)
         out.append(tok)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    return (t1 - t0) * 1e3, (t2 - t1) * 1e3 / LM_STEPS, torch.cat(out, 1)
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3 / steps, torch.cat(out, 1)
 
 
-def lm_agreement(api, params, tokens, served) -> float:
-    """Share of the served greedy tokens that the plain path, fed the
-    same prefixes, also picks."""
-    cache, logits = api.prefill(params, tokens, LM_MAX_LEN, use_kernel=False)
+def lm_agreement(api, params, tokens, served, run: LMRun,
+                 use_kernel: bool = False) -> float:
+    """Share of the greedy tokens ``served`` (B, 1 + steps) that a path
+    (the plain one by default), fed the same prefixes, also picks."""
+    cache, logits = api.prefill(params, tokens, run.max_len,
+                                use_kernel=use_kernel)
     same = [_greedy(logits) == served[:, :1]]
-    for i in range(LM_STEPS):
+    for i in range(run.steps):
         logits, cache = api.decode_step(params, cache, served[:, i:i + 1],
-                                        use_kernel=False)
+                                        use_kernel=use_kernel)
         same.append(_greedy(logits) == served[:, i + 1:i + 2])
     return torch.cat(same, 1).float().mean().item()
 
 
-def lm_phase(api, params, tokens) -> dict:
+def lm_phase(api, params, tokens, run: LMRun) -> dict:
     """The LM serving path: fp32 kernel vs plain, then bf16 serving runs.
     Returns the prefills and decode steps taken on the kernel path and the
     bf16 timings."""
-    prefill_step = make_prefill_step(api, LM_MAX_LEN)
+    prefill_step = make_prefill_step(api, run.max_len)
     serve_step = make_decode_step(api)
-    lm_fp32(api, params, tokens, prefill_step)
+    fp32_tokens = lm_fp32(api, params, tokens, prefill_step, run)
     params.to(torch.bfloat16)
-    runs = [lm_serve(params, tokens, prefill_step, serve_step)
+    runs = [lm_serve(params, tokens, prefill_step, serve_step, run.steps)
             for _ in range(2)]
     prefill_ms, step_ms, served = runs[-1]
     if not torch.equal(runs[0][2], served):
         raise AssertionError("LM bf16: two serving runs gave other tokens")
-    agree = lm_agreement(api, params, tokens, served)
-    phase("lm", f"{LM_ARCH} bf16 serving (second of 2 runs, eager): "
-                f"prefill {prefill_ms:.2f} ms for {LM_BATCH} x {LM_PROMPT} "
+    agree = lm_agreement(api, params, tokens, served, run)
+    kern32, plain32 = (lm_agreement(api, params, tokens, fp32_tokens, run,
+                                    use_kernel=k) for k in (True, False))
+    phase("lm", f"{run.arch} bf16 serving (second of 2 runs, eager): "
+                f"prefill {prefill_ms:.2f} ms for {run.batch} x {run.prompt} "
                 f"tokens, decode {step_ms:.3f} ms per step = "
-                f"{LM_BATCH * 1e3 / step_ms:.1f} tokens/s; kernel path "
+                f"{run.batch * 1e3 / step_ms:.1f} tokens/s; kernel path "
                 f"agrees with the plain path on {agree:.4f} of "
-                f"{served.numel()} greedy tokens (printed, not gated)")
-    # kernel-path runs: the fp32 comparison and the bf16 serving runs
-    n_runs = 1 + len(runs)
-    return {"prefills": n_runs, "steps": n_runs * LM_STEPS,
+                f"{served.numel()} greedy tokens; of the fp32 kernel path's "
+                f"greedy tokens, fed the same prefixes, the bf16 kernel path "
+                f"picks {kern32:.4f} and the bf16 plain path {plain32:.4f} "
+                f"(printed, not gated)")
+    # kernel-path runs: the fp32 comparison, the bf16 serving runs and the
+    # bf16 kernel path's agreement with the fp32 tokens
+    n_runs = 1 + len(runs) + 1
+    return {"prefills": n_runs, "steps": n_runs * run.steps,
             "prefill_ms": prefill_ms, "step_ms": step_ms}
 
 
-def lm_device_phase(api, params, tokens, lm: dict) -> None:
+def lm_device_phase(api, params, tokens, lm: dict, run: LMRun) -> None:
     """Device-only bf16 prefill and decode-step times (CUDA graph replays,
     launched outside the counted run) against the eager times."""
-    cache, logits = api.prefill(params, tokens, LM_MAX_LEN)
+    cache, logits = api.prefill(params, tokens, run.max_len)
     tok = _greedy(logits)
     step_dev = graph_ms(lambda: api.decode_step(params, cache, tok),
                         calls=4, replays=5)
-    prefill_dev = graph_ms(lambda: api.prefill(params, tokens, LM_MAX_LEN),
+    prefill_dev = graph_ms(lambda: api.prefill(params, tokens, run.max_len),
                            calls=1, replays=3)
-    phase("lm", f"bf16 device-only (CUDA graph): prefill {prefill_dev:.2f} "
-                f"ms, decode step {step_dev:.3f} ms; so the card idles "
-                f"{1 - prefill_dev / lm['prefill_ms']:.1%} of an eager "
-                f"prefill and {1 - step_dev / lm['step_ms']:.1%} of an "
-                f"eager decode step")
+    phase("lm", f"{run.arch} bf16 device-only (CUDA graph): prefill "
+                f"{prefill_dev:.2f} ms, decode step {step_dev:.3f} ms; so "
+                f"the card idles {1 - prefill_dev / lm['prefill_ms']:.1%} of "
+                f"an eager prefill and {1 - step_dev / lm['step_ms']:.1%} of "
+                f"an eager decode step")
+
+
+def lm_path(run: LMRun) -> dict:
+    """One LM's serving path at full width and depth, random weights from
+    seed 0: counts set to 0 just before its serving runs and read just
+    after, each kernel's count held to ``run``'s launches per prefill and
+    per step.  Returns the counts."""
+    api = get_model(get_arch(run.arch))
+    cfg = api.cfg
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = api.init_params(gen, torch.float32, "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (run.batch, run.prompt),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    if cfg.family == "dense":
+        shape = f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, " \
+                f"d_ff {cfg.d_ff}"
+    else:
+        shape = f"{cfg.ssm_nheads} SSM heads of {cfg.ssm_headdim}, state " \
+                f"{cfg.ssm_state}, d_inner {cfg.d_inner}"
+    if cfg.family == "hybrid":
+        shape += (f"; {cfg.n_layers // cfg.attn_every} super-blocks of "
+                  f"{cfg.attn_every}, each followed by the shared block of "
+                  f"{cfg.n_heads} heads x {cfg.d_head}, window "
+                  f"{cfg.sliding_window}, d_ff {cfg.d_ff}")
+    phase("lm", f"{run.arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+                f"{shape}, vocab {cfg.vocab_size}; "
+                f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
+                "parameters, random from seed 0")
+    reset_counts()
+    lm = lm_phase(api, params, tokens, run)
+    counts = {fn.__name__[:-5]: fn.launches for fn in COUNTED}
+    for name, got in counts.items():
+        want = (run.per_prefill.get(name, 0) * lm["prefills"]
+                + run.per_step.get(name, 0) * lm["steps"])
+        if got != want:
+            raise AssertionError(
+                f"{run.arch} path: {name} launched {got} times, expected "
+                f"{run.per_prefill.get(name, 0)} x {lm['prefills']} prefills "
+                f"+ {run.per_step.get(name, 0)} x {lm['steps']} steps")
+    phase("launches", f"{run.arch} path: " + "; ".join(
+        f"{name} {counts[name]} = {per} x {lm[unit]} {unit}"
+        for per_unit, unit in ((run.per_prefill, "prefills"),
+                               (run.per_step, "steps"))
+        for name, per in per_unit.items()) + "; no other kernel")
+    lm_device_phase(api, params, tokens, lm, run)
+    del params
+    torch.cuda.empty_cache()
+    return counts
 
 
 def kernel_line(launches: int, worst: float) -> dict:
@@ -595,8 +854,17 @@ def _valid_pairs(s: int, t: int, causal: bool, window: int) -> int:
     return int(mask.sum())
 
 
-def _attention_line(name, launches, worst, fns, graph_calls, eager_iters,
-                    flops, nbytes, err, shape) -> dict:
+def _kernel_only(fn, graph_calls, flops, nbytes, shape) -> dict:
+    """A kernel's device-only time and bound at another path's shape."""
+    by_ops, by_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return {"shape": shape, "ms": graph_ms(fn, *graph_calls),
+            "bound_ms": max(by_ops, by_bytes) * 1e3,
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def _attention_line(name, launches, by_path, worst, fns, graph_calls,
+                    eager_iters, flops, nbytes, err, shape) -> dict:
     times = {key: (graph_ms(fn, *graph_calls), event_ms(fn, eager_iters))
              for key, fn in fns.items()}
     by_ops, by_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
@@ -606,7 +874,7 @@ def _attention_line(name, launches, worst, fns, graph_calls, eager_iters,
                          "src/repro/kernels/flash_attention.py:76",
                          "decode_attention":
                          "src/repro/kernels/decode_attention.py:61"}[name],
-            "launches": launches,
+            "launches": launches, "launches_by_path": by_path,
             "max_abs_err": max(err, *worst.values()),
             "max_abs_err_fp32": worst[torch.float32],
             "ms": times["ms"][0], "plain_ms": times["plain_ms"][0],
@@ -618,7 +886,7 @@ def _attention_line(name, launches, worst, fns, graph_calls, eager_iters,
             "flops": flops, "bytes": nbytes, "shape": shape}
 
 
-def flash_line(launches: int, worst: dict) -> dict:
+def flash_line(launches: int, by_path: dict, worst: dict) -> dict:
     """flash_attention at one layer of the LM prefill: B 4, S 2000, H 16,
     KH 2, D 128, causal, bf16.  Library: SDPA with enable_gqa."""
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -635,13 +903,23 @@ def flash_line(launches: int, worst: dict) -> dict:
                qt, kt, vt, is_causal=True, enable_gqa=True)}
     flops = 4 * d * b * h * _valid_pairs(s, s, causal, window)
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    return _attention_line("flash_attention", launches, worst, fns, (4, 3),
-                           10, flops, nbytes, err,
+    line = _attention_line("flash_attention", launches, by_path, worst, fns,
+                           (4, 3), 10, flops, nbytes, err,
                            f"B {b}, S {s}, H {h}, KH {kh}, D {d}, causal, "
                            "bf16")
+    # zamba2-2.7b's shared block at its prefill: the kernel alone
+    case = ("zamba2", 4, 2048, 32, 32, 80, True, 4096)
+    _, b, s, h, kh, d, causal, window = case
+    q, k, v = _flash_inputs(gen, case, torch.bfloat16)
+    flops = 4 * d * b * h * _valid_pairs(s, s, causal, window)
+    line["zamba2_shape"] = _kernel_only(
+        lambda: ops.flash_attention(q, k, v, window=window), (4, 3), flops,
+        2 * (2 * q.numel() + k.numel() + v.numel()),
+        f"B {b}, S {s}, H {h}, KH {kh}, D {d}, causal, window {window}, bf16")
+    return line
 
 
-def decode_line(launches: int, worst: dict) -> dict:
+def decode_line(launches: int, by_path: dict, worst: dict) -> dict:
     """decode_attention at one layer of an LM decode step: B 4, T 2048,
     KH 2, G 8, D 128, the last 48 slots empty, bf16.  Library: SDPA with
     enable_gqa and a boolean pos >= 0 mask."""
@@ -661,16 +939,102 @@ def decode_line(launches: int, worst: dict) -> dict:
     n_valid = int((pos >= 0).sum())
     flops = 4 * d * b * kh * g * n_valid
     nbytes = 2 * (2 * q.numel() + 2 * b * n_valid * kh * d) + 4 * t
-    return _attention_line("decode_attention", launches, worst, fns,
+    line = _attention_line("decode_attention", launches, by_path, worst, fns,
                            (50, 20), 500, flops, nbytes, err,
                            f"B {b}, T {t} ({n_valid} valid), KH {kh}, G {g}, "
                            f"D {d}, bf16")
+    # zamba2-2.7b's shared block in a decode step: the kernel alone
+    case = ("zamba2", 4, 2096, 32, 1, 80, "tail", 48)
+    _, b, t, kh, g, d, _, n_empty = case
+    q, k, v, pos = _decode_inputs(gen, case, torch.bfloat16)
+    n_valid = t - n_empty
+    line["zamba2_shape"] = _kernel_only(
+        lambda: ops.decode_attention(q, k, v, pos), (50, 20),
+        4 * d * b * kh * g * n_valid,
+        2 * (2 * q.numel() + 2 * b * n_valid * kh * d) + 4 * t,
+        f"B {b}, T {t} ({n_valid} valid), KH {kh}, G {g}, D {d}, bf16")
+    return line
+
+
+def _ssd_work(case, elt: int) -> tuple[int, int]:
+    """(flops, bytes) the SSD scan needs at a case's shape: each input read
+    once (x, b, c in ``elt`` bytes, dt and a_log in fp32), y and the fp32
+    final state written once; the products of the kernel's 64-row chunks,
+    C·Bᵀ over the causal (i >= j) pairs once per group, (C·Bᵀ ∘ L)·xdt over
+    those pairs, and the carried state's two Q x N x P products per head.
+    Exponentials and scalings are not counted."""
+    _, b, l, h, p, g, n, _ = case
+    nbytes = (elt * (2 * b * l * h * p + 2 * b * l * g * n)
+              + 4 * (b * l * h + h + b * h * p * n))
+    flops = 0
+    for t0 in range(0, l, SSD_CHUNK):
+        q = min(SSD_CHUNK, l - t0)
+        pairs = q * (q + 1) // 2
+        flops += b * g * 2 * pairs * n + b * h * (2 * pairs * p + 4 * q * n * p)
+    return flops, nbytes
+
+
+def _ssd_times(case, gen) -> dict:
+    """The SSD scan's bf16 kernel and plain version at ``case``'s shape
+    (x, b, c packed as the model passes them): device-only and eager times,
+    the bound and y's error."""
+    inputs = _ssd_inputs(gen, case, torch.bfloat16)
+    err, rel = _ssd_gate(f"ssd_scan line {case[0]}", inputs)
+    fns = {"ms": lambda: ops.ssd_scan(*inputs),
+           "plain_ms": lambda: ssd_scan_ref(*inputs)}
+    graphs = {"ms": (10, 5), "plain_ms": (1, 2)}
+    eager = {"ms": 20, "plain_ms": 2}
+    times = {key: (graph_ms(fn, *graphs[key]), event_ms(fn, eager[key]))
+             for key, fn in fns.items()}
+    flops, nbytes = _ssd_work(case, 2)
+    by_ops, by_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    _, b, l, h, p, g, n, _ = case
+    return {"ms": times["ms"][0], "plain_ms": times["plain_ms"][0],
+            "bound_ms": max(by_ops, by_bytes) * 1e3,
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "eager_ms": times["ms"][1], "eager_plain_ms": times["plain_ms"][1],
+            "flops": flops, "bytes": nbytes, "err": err, "rel_err": rel,
+            "shape": f"B {b}, L {l}, H {h}, P {p}, G {g}, N {n}, bf16, x/b/c "
+                     "views of one packed conv output"}
+
+
+def ssd_line(launches: int, by_path: dict, worst: dict) -> dict:
+    """ssd_scan at one layer of mamba2-130m's prefill (B 4, L 2048, H 24,
+    P 64, N 128, bf16), and the same numbers at zamba2-2.7b's (H 80, N 64).
+    No single PyTorch call computes the SSD scan: library null."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    main, other = (_ssd_times(case, gen) for case in SSD_CASES[:2])
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:70",
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": max(main["err"], *(a for a, _ in worst.values())),
+            "max_abs_err_fp32": worst[torch.float32][0],
+            "max_rel_err": max(main["rel_err"],
+                               *(r for _, r in worst.values())),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+            "eager_ms": main["eager_ms"],
+            "eager_plain_ms": main["eager_plain_ms"],
+            "eager_library_ms": None,
+            "flops": main["flops"], "bytes": main["bytes"],
+            "shape": main["shape"],
+            "zamba2_shape": {k: other[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by", "eager_ms",
+                "eager_plain_ms", "flops", "bytes")}}
+
+
+COUNTED = (embedding_bag_cuda, flash_attention_cuda, decode_attention_cuda,
+           ssd_scan_cuda)
 
 
 def reset_counts() -> None:
-    for fn in (embedding_bag_cuda, flash_attention_cuda,
-               decode_attention_cuda):
+    for fn in COUNTED:
         fn.launches = 0
+
+
+def _ms(x) -> str:
+    return "none" if x is None else f"{x:.5f} ms"
 
 
 def main() -> int:
@@ -678,6 +1042,7 @@ def main() -> int:
     build_phase()
     worst = kernel_phase()
     attn_worst = attention_phase()
+    ssd_worst = ssd_phase()
     forward_phase()
 
     # Main path 1: the MT-WND serving pool and RIBBON's search over it.
@@ -698,50 +1063,28 @@ def main() -> int:
                       f"path = {CFG['n_tables']} x {forwards} forwards")
     del engine
 
-    # Main path 2: the decoder LM's serving path at full width and depth.
-    api = get_model(get_arch(LM_ARCH))
-    n_layers = api.cfg.n_layers
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = api.init_params(gen, torch.float32, "cuda")
-    tokens = torch.randint(0, api.cfg.vocab_size, (LM_BATCH, LM_PROMPT),
-                           generator=gen, device="cuda", dtype=torch.int32)
-    phase("lm", f"{LM_ARCH}: {n_layers} layers, d_model "
-                f"{api.cfg.d_model}, {api.cfg.n_heads} heads over "
-                f"{api.cfg.n_kv_heads} KV heads, d_ff {api.cfg.d_ff}, vocab "
-                f"{api.cfg.vocab_size}; "
-                f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
-                "parameters, random from seed 0")
-    reset_counts()
-    lm = lm_phase(api, params, tokens)
-    flash_launches = flash_attention_cuda.launches
-    decode_launches = decode_attention_cuda.launches
-    if flash_launches != n_layers * lm["prefills"] or \
-            decode_launches != n_layers * lm["steps"] or \
-            embedding_bag_cuda.launches != 0:
-        raise AssertionError(
-            f"LM path launches: flash_attention {flash_launches}, expected "
-            f"{n_layers} x {lm['prefills']} prefills; decode_attention "
-            f"{decode_launches}, expected {n_layers} x {lm['steps']} steps")
-    phase("launches", f"flash_attention: {flash_launches} launches on the LM "
-                      f"path = {n_layers} x {lm['prefills']} prefills; "
-                      f"decode_attention: {decode_launches} = {n_layers} x "
-                      f"{lm['steps']} decode steps")
-    lm_device_phase(api, params, tokens, lm)
-    del params
-    torch.cuda.empty_cache()
+    # Main paths 2-4: the LMs' serving paths at full width and depth.
+    by_path = {run.arch: lm_path(run) for run in LM_RUNS}
+
+    def launches(kernel: str) -> tuple[int, dict]:
+        counts = {arch: c[kernel] for arch, c in by_path.items() if c[kernel]}
+        return sum(counts.values()), counts
 
     lines = [kernel_line(bag_launches, worst),
-             flash_line(flash_launches, attn_worst["flash_attention"]),
-             decode_line(decode_launches, attn_worst["decode_attention"])]
+             flash_line(*launches("flash_attention"),
+                        attn_worst["flash_attention"]),
+             decode_line(*launches("decode_attention"),
+                         attn_worst["decode_attention"]),
+             ssd_line(*launches("ssd_scan"), ssd_worst)]
     for line in lines:
         phase("kernel", f"{line['name']} at its path's shape, device-only "
-                        f"(CUDA graph): kernel {line['ms']:.5f} ms, plain "
-                        f"{line['plain_ms']:.5f} ms, library "
-                        f"{line['library_ms']:.5f} ms, bound "
+                        f"(CUDA graph): kernel {_ms(line['ms'])}, plain "
+                        f"{_ms(line['plain_ms'])}, library "
+                        f"{_ms(line['library_ms'])}, bound "
                         f"{line['bound_ms']:.6f} ms ({line['bound_by']}); "
-                        f"eager: kernel {line['eager_ms']:.5f} ms, plain "
-                        f"{line['eager_plain_ms']:.5f} ms, library "
-                        f"{line['eager_library_ms']:.5f} ms")
+                        f"eager: kernel {_ms(line['eager_ms'])}, plain "
+                        f"{_ms(line['eager_plain_ms'])}, library "
+                        f"{_ms(line['eager_library_ms'])}")
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

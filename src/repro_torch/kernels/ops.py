@@ -15,7 +15,9 @@ import torch
 from . import decode_attention as _decode
 from . import embedding_bag as _bag
 from . import flash_attention as _flash
-from .ref import decode_attention_ref, embedding_bag_ref, flash_attention_ref
+from . import ssd_scan as _ssd
+from .ref import (decode_attention_ref, embedding_bag_ref, flash_attention_ref,
+                  ssd_scan_ref)
 
 
 def _route(name: str, device: torch.device):
@@ -60,3 +62,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _route("decode_attention", q.device):
         return _decode.decode_attention_cuda(q, k, v, pos, scale=scale)
     return decode_attention_ref(q, k, v, pos, scale=scale)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor):
+    """Mamba-2 SSD scan.  x (B, L, H, P); dt (B, L, H) float32 after
+    softplus; a_log (H,) float32 (A = -exp(a_log)); b, c (B, L, G, N), head
+    h reading group h // (H // G) → y (B, L, H, P) in x's type and the
+    final state (B, H, P, N) float32.  Any L; x, b and c may be strided
+    views (last dim contiguous)."""
+    _ssd.check_inputs(x, dt, a_log, b, c)
+    if _route("ssd_scan", x.device):
+        return _ssd.ssd_scan_cuda(x, dt, a_log, b, c)
+    return ssd_scan_ref(x, dt, a_log, b, c)

@@ -66,6 +66,55 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, s, h, d)
 
 
+def per_head(x: torch.Tensor, heads: int, dim: int) -> torch.Tensor:
+    """Groups on axis ``dim`` broadcast onto ``heads`` heads, head h taking
+    group h // (heads // G) (``jnp.repeat``'s order), through ``expand``:
+    no host sync, so it can be captured in a CUDA graph."""
+    shape = list(x.shape)
+    shape.insert(dim + 1, heads // x.shape[dim])
+    out = x.unsqueeze(dim + 1).expand(*shape)
+    return out.reshape(*x.shape[:dim], heads, *x.shape[dim + 1:])
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor):
+    """The Mamba-2 SSD scan, token by token: x (B, L, H, P), dt (B, L, H)
+    float32 after softplus, a_log (H,), b and c (B, L, G, N), head h reading
+    group h // (H // G) → y (B, L, H, P) in x's type and the final state
+    (B, H, P, N) float32.
+
+    The contract of the reference's ``ops.ssd_scan`` and the arithmetic of
+    its sequential ``ref.ssd_scan_ref``: xdt = x · dt rounded to x's type
+    (dt rounded first, as the reference wrapper does), then in float32
+
+        state_t = exp(dt_t · A) · state_{t-1} + xdt_t ⊗ b_t,   A = -exp(a_log)
+        y_t     = state_t · c_t
+
+    and y cast once to x's type.  The kernel computes the same function in
+    64-row chunks: the in-chunk decays exp(cum_i - cum_j) come from
+    differences of a running sum (kept in float64), and it rounds
+    (C·Bᵀ ∘ L) to x's type before the product with xdt.  In float32 the two
+    differ by rounding only, about 1e-5 x max |y| at mamba2-130m's prefill
+    shape; in bfloat16 the kernel's extra rounding of the score matrix adds
+    about one bf16 rounding of each y (2^-9 relative), so its y may land
+    one bf16 step from the plain version's.
+    """
+    bsz, slen, h, p = x.shape
+    a = -torch.exp(a_log.float())
+    xdt = (x * dt.to(x.dtype)[..., None]).float()
+    decay = torch.exp(dt.float() * a)                      # (B, L, H)
+    bh = per_head(b.float(), h, 2)                         # (B, L, H, N)
+    ch = per_head(c.float(), h, 2)
+    state = torch.zeros((bsz, h, p, b.shape[3]), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for t in range(slen):
+        state = (state * decay[:, t, :, None, None]
+                 + xdt[:, t, :, :, None] * bh[:, t, :, None, :])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, ch[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), state
+
+
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          pos: torch.Tensor, *,
                          scale: float | None = None) -> torch.Tensor:

@@ -1,0 +1,101 @@
+"""The Mamba-2 SSD scan on the card: the wrapper of ``csrc/ssd_scan.cu``.
+
+Replaces the TPU kernel ``repro/kernels/ssd_scan.py::ssd_scan`` (Pallas, a
+sequential grid over chunks with the (N, P) state in VMEM).  The CUDA
+kernel runs one thread block per (batch, head, 32-column tile of P); the
+block loops over 64-row chunks with the fp32 state tile in shared memory,
+computes each chunk's in-chunk term, carried-state term and state update as
+the TPU kernel does, and writes the final state in (B, H, P, N).  It reads
+x (B, L, H, P) and b, c (B, L, G, N) through their strides (views into the
+conv output, as the model passes them), maps head h to group h // (H // G),
+and applies dt and ``-exp(a_log)`` itself, so nothing is repeated, moved or
+pre-scaled.  It is bound by bytes; this first version computes with scalar
+fp32 FMAs.
+
+``ssd_scan_cuda.launches`` counts the launches, so a run can show that its
+path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .flash_attention import DTYPE_CODE
+
+CHUNK = 64           # the kernel's chunk length (rows)
+MAX_STATE = 256      # largest N its shared memory takes
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+             + [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_void_p])
+
+
+def check_inputs(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor) -> None:
+    """Raise on anything the kernel does not take: x (B, L, H, P) and b, c
+    (B, L, G, N) of one type (float32 or bfloat16), dt (B, L, H) and a_log
+    (H,) float32, all on one device; L >= 1, H a multiple of G, N <= 256;
+    the last dim of x, b and c contiguous and a_log contiguous."""
+    if any(t.device != x.device for t in (dt, a_log, b, c)):
+        raise ValueError("ssd_scan: x, dt, a_log, b and c must be on one "
+                         f"device, got {x.device}, {dt.device}, "
+                         f"{a_log.device}, {b.device}, {c.device}")
+    if x.dtype not in DTYPE_CODE or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise TypeError("ssd_scan: x, b and c must all be float32 or all "
+                        f"bfloat16, got {x.dtype}, {b.dtype}, {c.dtype}")
+    if dt.dtype != torch.float32 or a_log.dtype != torch.float32:
+        raise TypeError("ssd_scan: dt and a_log must be float32, got "
+                        f"{dt.dtype}, {a_log.dtype}")
+    if x.dim() != 4 or b.dim() != 4 or c.shape != b.shape:
+        raise ValueError("ssd_scan: x must be (B, L, H, P) and b, c "
+                         f"(B, L, G, N), got {tuple(x.shape)}, "
+                         f"{tuple(b.shape)}, {tuple(c.shape)}")
+    bsz, slen, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    if b.shape[:2] != (bsz, slen) or g == 0 or h % g != 0:
+        raise ValueError("ssd_scan: b, c must be (B, L, G, N) with H % G == 0 "
+                         f"for x {tuple(x.shape)}, got {tuple(b.shape)}")
+    if dt.shape != (bsz, slen, h) or a_log.shape != (h,):
+        raise ValueError(f"ssd_scan: dt must be ({bsz}, {slen}, {h}) and "
+                         f"a_log ({h},), got {tuple(dt.shape)}, "
+                         f"{tuple(a_log.shape)}")
+    if slen == 0 or p == 0 or not 1 <= n <= MAX_STATE:
+        raise ValueError(f"ssd_scan: need L >= 1, P >= 1 and 1 <= N <= "
+                         f"{MAX_STATE}, got L {slen}, P {p}, N {n}")
+    if any(t.stride(3) != 1 for t in (x, b, c)) or not a_log.is_contiguous():
+        raise ValueError("ssd_scan: the last dim of x, b and c must be "
+                         "contiguous (stride 1), and a_log contiguous")
+    if max(bsz, h, slen, p * n) >= 2 ** 31:
+        raise ValueError("ssd_scan: sizes must fit in int32")
+
+
+def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                  b: torch.Tensor, c: torch.Tensor):
+    """Launch the CUDA kernel on the current stream (inputs already checked
+    by ``check_inputs``, on a CUDA device).  Returns new contiguous y
+    (B, L, H, P) in x's type and final state (B, H, P, N) float32.  Raises
+    if the launch fails."""
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_cuda needs CUDA tensors, got {x.device}")
+    bsz, slen, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    if bsz > 65535 or h > 65535:
+        raise ValueError(f"ssd_scan_cuda: B {bsz} or H {h} > 65535")
+    y = torch.empty((bsz, slen, h, p), dtype=x.dtype, device=x.device)
+    state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    fn = _build.function("ssd_scan", "ssd_scan_forward", _ARGTYPES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+                c.data_ptr(), y.data_ptr(), state.data_ptr(),
+                bsz, slen, h, p, g, n, *x.stride()[:3], *dt.stride(),
+                *b.stride()[:3], *c.stride()[:3], DTYPE_CODE[x.dtype],
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError_t {rc}")
+    ssd_scan_cuda.launches += 1
+    return y, state
+
+
+ssd_scan_cuda.launches = 0

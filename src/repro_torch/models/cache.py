@@ -1,6 +1,6 @@
-"""Decode-time KV caches, preallocated and written in place.
+"""Decode-time caches, preallocated and written in place.
 
-Counterpart of the non-quantised part of ``repro/models/cache.py``.  A
+Counterpart of the non-quantised part of ``repro/models/cache.py``.  A KV
 cache is a dict: ``k`` and ``v`` (L, B, W, KH, hd) tensors, ``pos`` the
 shared (W,) int32 table of each slot's absolute position (-1 = empty), and
 ``t`` the next decode step as a Python int (so a step picks its slot with
@@ -11,7 +11,9 @@ batch decode in lock-step.
 The reference's caches are immutable pytrees rebuilt on every write
 (``.at[:, slot].set`` and restacking out of ``lax.scan``); here the tensors
 are allocated once and every write lands in place, so a decode step moves
-one slot per layer instead of copying 2·L·B·W·KH·hd elements.
+one slot per layer instead of copying 2·L·B·W·KH·hd elements.  An SSM
+cache (``init_ssm_cache``) holds each layer's recurrent state and conv
+carry, overwritten in place by prefill and by every decode step.
 """
 
 from __future__ import annotations
@@ -26,6 +28,21 @@ def init_kv_cache(cfg, n_layers: int, batch: int, window: int,
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "pos": torch.full((window,), -1, dtype=torch.int32, device=device),
+        "t": 0,
+    }
+
+
+def init_ssm_cache(cfg, n_layers: int, batch: int, device=None) -> dict:
+    """``state`` (L, B, H, P, N) and ``conv`` (L, B, K-1, conv_dim), both
+    float32 whatever the activation type, as in the reference; ``t`` the
+    next decode step as a Python int."""
+    h, p, n = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * n
+    return {
+        "state": torch.zeros((n_layers, batch, h, p, n), dtype=torch.float32,
+                             device=device),
+        "conv": torch.zeros((n_layers, batch, cfg.conv_kernel - 1, conv_dim),
+                            dtype=torch.float32, device=device),
         "t": 0,
     }
 

@@ -158,7 +158,7 @@ def test_plain_adds_in_order_from_zero():
 def test_build_targets_hopper_from_repo_sources():
     from repro_torch.kernels import _build
     assert _build.sources() == ["decode_attention", "embedding_bag",
-                                "flash_attention"]
+                                "flash_attention", "ssd_scan"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     for name in _build.sources():
         path = _build.library_path(name)

@@ -45,6 +45,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(modules) >= 15 and set(modules) <= set(loaded)
+    assert {"repro_torch.models.ssm", "repro_torch.kernels.ssd_scan"} <= set(modules)
     bad = [m for m in loaded if m == "jax" or m.startswith(("jax.", "jaxlib"))
            or m == "repro" or m.startswith("repro.")]
     assert bad == []
@@ -59,6 +60,8 @@ def _entry_points():
     from repro_torch.serving.engine import DEFAULT_CELLS, ClusterEngine
     space = SearchSpace((2, 2), (1.0, 2.0))
     lm = get_model(get_arch("qwen2.5-3b").reduced())
+    ssm_lm = get_model(get_arch("mamba2-130m").reduced())
+    hybrid_lm = get_model(get_arch("zamba2-2.7b").reduced())
     return {
         "ClusterEngine": lambda: ClusterEngine("mtwnd", DEFAULT_CELLS),
         "RibbonOptimizer": lambda: RibbonOptimizer(space),
@@ -69,6 +72,10 @@ def _entry_points():
         "lm_init_params": lambda: lm.init_params(torch.Generator()),
         "lm_init_cache": lambda: lm.init_cache(1, 8),
         "lm_from_numpy": lambda: lm_from_numpy(lm.cfg, {}),
+        "ssm_init_params": lambda: ssm_lm.init_params(torch.Generator()),
+        "ssm_init_cache": lambda: ssm_lm.init_cache(1, 8),
+        "hybrid_init_params": lambda: hybrid_lm.init_params(torch.Generator()),
+        "hybrid_init_cache": lambda: hybrid_lm.init_cache(1, 8),
     }
 
 
@@ -76,7 +83,9 @@ def _entry_points():
                                   "run_ribbon", "GaussianProcess",
                                   "mtwnd_init", "make_random_batch",
                                   "lm_init_params", "lm_init_cache",
-                                  "lm_from_numpy"])
+                                  "lm_from_numpy", "ssm_init_params",
+                                  "ssm_init_cache", "hybrid_init_params",
+                                  "hybrid_init_cache"])
 def test_entry_point_without_device_raises_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card: the default device is valid")

@@ -238,7 +238,8 @@ def test_config_copy_matches_reference(name):
 
 @pytest.mark.parametrize("cfg", [
     *(ARCHS[n] for n in sorted(ARCHS) if n not in
-      ("qwen2.5-3b", "qwen2-7b", "stablelm-3b")),
+      ("qwen2.5-3b", "qwen2-7b", "stablelm-3b", "mamba2-130m",
+       "zamba2-2.7b")),
     dataclasses.replace(ARCHS["qwen2.5-3b"], kv_quant_int8=True),
 ], ids=lambda c: c.name + ("-int8kv" if c.kv_quant_int8 else ""))
 def test_other_families_are_refused_with_their_roadmap_item(cfg):

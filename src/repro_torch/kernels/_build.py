@@ -2,8 +2,9 @@
 
 Every ``src/repro_torch/csrc/*.cu`` file exposes a plain C interface and is
 compiled on its own into ``build/torch_kernels/lib<name>-<digest>.so`` at
-the repository root, for ``sm_90a`` (Hopper).  The digest covers the source
-and the flags, so an edited source is rebuilt and an unchanged one reused.
+the repository root, for ``sm_90a`` (Hopper).  The digest covers the source,
+every shared header (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and an unchanged one reused.
 Nothing here runs at import: a host without ``nvcc`` imports this module
 fine, and only a CUDA launch needs the library.
 """
@@ -42,7 +43,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Where ``lib<name>`` is built: named by a digest of its source, of
+    every header in ``csrc`` (any source may include any of them) and of
+    the flags."""
     digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

@@ -2,17 +2,32 @@
 
 Replaces the TPU kernel ``repro/kernels/decode_attention.py::
 decode_attention`` (Pallas, a sequential grid over 512-slot cache blocks).
-The CUDA kernel splits the cache across thread blocks (flash-decoding):
-each block reads the G query heads of one (batch, KV head) once, streams
-its run of 64-slot tiles with an online softmax and writes a partial
-(m, l, acc); a second kernel combines the partials, weighing each by
-exp(m_split - m_max).  Slots count iff ``pos >= 0``.  The cache layer is
-read in its (B, T, KH, D) layout through its strides: nothing is copied or
-padded.  It is bound by the cache's bytes.
+The CUDA kernels split the cache across thread blocks (flash-decoding, the
+plan in ``split_plan``): each block reads the G query heads of one
+(batch, KV head) once and streams its run of 64-slot tiles with an online
+softmax.  Slots count iff ``pos >= 0``.  The cache layer is read in its
+(B, T, KH, D) layout through its strides: nothing is copied or padded.  It
+is bound by the cache's bytes.
 
-``decode_attention_cuda.launches`` counts the calls that launch the kernel
-(one count per call, which launches the split pass and the combine), so a
-run can show that its path went through it.
+The route is chosen by dtype, up front:
+
+* bfloat16 (the serving type) goes to ``decode_attention_bf16``: one launch
+  a call.  Tiles stream by 16-byte cp.async through a ring of 4; scores
+  and P·V are mma.sync products for G >= 2 and two-lane dot products for
+  G = 1; P is rounded to bf16 before P·V as the TPU kernel does.  The last
+  block of each (batch, KV head) to finish combines the splits, found by an
+  atomic counter in a buffer zeroed once per device (``_counters``), so the
+  call needs no host sync and can be captured in a CUDA graph.  It takes
+  D % 8 == 0 and 16-byte aligned bases and strides
+  (``check_tensor_core_inputs`` raises on anything else).
+* float32 goes to ``decode_attention_f32``: fp32 FMAs, a split pass and a
+  combine kernel.
+
+The partial (m, l, acc) of every split goes to a ``torch.empty`` buffer
+allocated per call.  ``decode_attention_cuda.launches`` counts the calls
+that launch the kernels and ``decode_attention_cuda.launches_by_dtype``
+splits them by input type, so a run can show that its path went through
+them.
 """
 
 from __future__ import annotations
@@ -22,15 +37,24 @@ import ctypes
 import torch
 
 from . import _build
-from .flash_attention import DTYPE_CODE, MAX_HEAD_DIM
+from .flash_attention import DTYPE_CODE, MAX_HEAD_DIM, check_tensor_core_inputs
 
 MAX_GROUP = 32
 TILE = 64            # keys per tile; a split covers a multiple of it
-BLOCKS_PER_SM = 2    # splits are chosen to give about this many blocks per SM
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-             + [ctypes.c_longlong] * 8
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p])
+MIN_TILES = 4        # tiles every block streams, where T has that many
+MAX_SPLITS = 128     # the bf16 kernel's combine takes up to 4 splits a lane
+# The C entry point of each input type.
+ENTRY = {torch.bfloat16: "decode_attention_bf16",
+         torch.float32: "decode_attention_f32"}
+# Both take q, k, v, pos, out and partial; bf16 also the split counters.
+_SIZES = ([ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
+          + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_ARGTYPES = {torch.bfloat16: [ctypes.c_void_p] * 7 + _SIZES,
+             torch.float32: [ctypes.c_void_p] * 6 + _SIZES}
+# The bf16 kernel's split counters: B·KH·ceil(G / 16) ints, at most this
+# many (B·KH <= 65535, G <= 32).
+_N_COUNTERS = 2 * 65536
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -77,19 +101,38 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def split_plan(n_rows: int, t: int, n_sms: int) -> tuple[int, int]:
     """(span, n_splits): split T slots into runs of ``span`` (a multiple of
-    the 64-slot tile) so that ``n_rows`` (batch, KV head) rows give about
-    BLOCKS_PER_SM blocks per SM."""
+    the 64-slot tile) for ``n_rows`` (batch, KV head) rows.
+
+    The rule: at most one wave of blocks on ``n_sms`` SMs (n_sms // n_rows
+    splits per row, at least 1 and at most MAX_SPLITS), and no split
+    shorter than MIN_TILES tiles where T has that many, so every block
+    keeps tiles in flight through its ring while it works (the card needs
+    some 3.3 MB outstanding to stream at 3.35 TB/s; a 64-slot bf16 tile of
+    K and V is 32 KB at D 128).  At qwen2.5-3b's step (8 rows, T 2048: 32
+    tiles) that is 8 splits of 4 tiles, 64 blocks; at zamba2-2.7b's (128
+    rows, T 2096: 33 tiles) one split of 33 tiles, 128 blocks."""
     n_tiles = -(-t // TILE)
-    want = max(1, min(n_tiles, -(-BLOCKS_PER_SM * n_sms // n_rows)))
+    want = max(1, min(n_tiles // MIN_TILES, n_sms // n_rows, MAX_SPLITS))
     span = TILE * -(-n_tiles // want)
     return span, -(-t // span)
 
 
+def _counters(device: torch.device) -> torch.Tensor:
+    """The bf16 kernel's split counters on ``device``: zeroed once, on the
+    first call (before any graph capture), and left at 0 by every launch."""
+    buf = _COUNTERS.get(device)
+    if buf is None:
+        buf = _COUNTERS[device] = torch.zeros(_N_COUNTERS, dtype=torch.int32,
+                                              device=device)
+    return buf
+
+
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           pos: torch.Tensor, *, scale: float) -> torch.Tensor:
-    """Launch the CUDA kernels on the current stream (inputs already checked
-    by ``check_inputs``, on a CUDA device).  Returns a new contiguous
-    (B, 1, H, D) tensor.  Raises if the launch fails."""
+    """Launch the CUDA kernel(s) of q's type on the current stream (inputs
+    already checked by ``check_inputs``, on a CUDA device).  Returns a new
+    contiguous (B, 1, H, D) tensor.  Raises if the launch fails, or if a
+    bf16 input does not suit the tensor-core kernel."""
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_cuda needs CUDA tensors, got {q.device}")
     b, _, h, d = q.shape
@@ -101,22 +144,37 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     span, n_splits = split_plan(b * kh, t, n_sms)
-    group = h // kh
-    partial = torch.empty(b * kh * n_splits * group * (d + 2),
+    partial = torch.empty(b * kh * n_splits * (h // kh) * (d + 2),
                           dtype=torch.float32, device=q.device)
-    fn = _build.function("decode_attention", "decode_attention_forward",
-                         _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-                out.data_ptr(), partial.data_ptr(),
-                b, t, kh, group, d, q.stride(0), q.stride(2),
-                *k.stride()[:3], *v.stride()[:3], float(scale), span,
-                n_splits, DTYPE_CODE[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: cudaError_t {rc}")
-    decode_attention_cuda.launches += 1
+        counters = _counters(q.device) if q.dtype == torch.bfloat16 else None
+        _launch(q, k, v, pos, out, partial, counters, span=span,
+                n_splits=n_splits, scale=scale, stream=stream)
     return out
 
 
+def _launch(q, k, v, pos, out, partial, counters, *, span: int,
+            n_splits: int, scale: float, stream: int) -> None:
+    """Call the C entry point of q's type and count the launch."""
+    b, _, h, d = q.shape
+    _, t, kh, _ = k.shape
+    head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), partial.data_ptr()]
+    if q.dtype == torch.bfloat16:
+        check_tensor_core_inputs(q, k, v, pos)
+        head.append(counters.data_ptr())
+    fn = _build.function("decode_attention", ENTRY[q.dtype],
+                         _ARGTYPES[q.dtype])
+    rc = fn(*head, b, t, kh, h // kh, d, q.stride(0), q.stride(2),
+            *k.stride()[:3], *v.stride()[:3], float(scale), span, n_splits,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: cudaError_t {rc}")
+    decode_attention_cuda.launches += 1
+    decode_attention_cuda.launches_by_dtype[
+        str(q.dtype).removeprefix("torch.")] += 1
+
+
 decode_attention_cuda.launches = 0
+decode_attention_cuda.launches_by_dtype = {"bfloat16": 0, "float32": 0}

@@ -2,16 +2,26 @@
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``
 (Pallas, a sequential grid over key blocks with the online-softmax state in
-VMEM).  The CUDA kernel runs one thread block per (batch·head, 64-row query
+VMEM).  The CUDA kernels run one thread block per (batch·head, 64-row query
 tile); the block loops over 64-key tiles with the running (m, l, acc) in
 registers, skips tiles wholly masked by the causal or window mask, and
-masks the ragged last tile by index.  It reads q (B, S, H, D) and k/v
+masks the ragged last tile by index.  They read q (B, S, H, D) and k/v
 (B, T, KH, D) through their strides, so nothing is transposed, copied or
-padded.  It is bound by operations; this first version computes with
-scalar fp32 FMAs, not the tensor cores.
+padded to 128.  The work is bound by operations.
 
-``flash_attention_cuda.launches`` counts the launches, so a run can show
-that its path went through the kernel.
+The route is chosen by dtype, up front:
+
+* bfloat16 (the serving type) goes to ``flash_attention_bf16``, the
+  tensor-core kernel: mma.sync.m16n8k16 products, K/V tiles by cp.async
+  into a 2-stage ring, P rounded to bf16 before P·V as the TPU kernel does.
+  It takes D % 8 == 0 and 16-byte aligned bases and strides;
+  ``check_tensor_core_inputs`` raises on anything else before the launch.
+* float32 goes to ``flash_attention_f32``, fp32 FMAs, so fp32 results stay
+  within 1e-4 of the plain version (the tensor cores' TF32 would not).
+
+``flash_attention_cuda.launches`` counts the launches and
+``flash_attention_cuda.launches_by_dtype`` splits them by input type, so a
+run can show that its bf16 path went through the tensor-core kernel.
 """
 
 from __future__ import annotations
@@ -24,10 +34,13 @@ from . import _build
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+# The C entry point of each input type: the tensor-core kernel for bf16,
+# the fp32 FMA kernel for float32.
+ENTRY = {torch.bfloat16: "flash_attention_bf16",
+         torch.float32: "flash_attention_f32"}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 9
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -69,12 +82,33 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: sizes must fit in int32")
 
 
+def check_tensor_core_inputs(*tensors: torch.Tensor) -> None:
+    """Raise on a bf16 input the tensor-core kernels cannot take: a head dim
+    (of the first tensor) that is not a multiple of 8, or a base address or
+    a stride other than the last that is not 16-byte aligned (their loads
+    are 16-byte copies: 8 bf16 values, or 4 entries of decode's int32 pos).
+    Shared by flash and decode attention; the plain version on the CPU
+    takes any of these."""
+    d = tensors[0].shape[-1]
+    if d % 8 != 0:
+        raise ValueError(f"bf16 attention kernel: head dim {d} is not a "
+                         "multiple of 8")
+    for t in tensors:
+        if t.data_ptr() % 16 != 0:
+            raise ValueError("bf16 attention kernel: a base address is not "
+                             "16-byte aligned")
+        if any(st % 8 != 0 for st in t.stride()[:-1]):
+            raise ValueError(f"bf16 attention kernel: strides {t.stride()} "
+                             "are not multiples of 8 elements")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: int,
                          scale: float) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (inputs already checked
-    by ``check_inputs``, on a CUDA device).  Returns a new contiguous
-    (B, S, H, D) tensor.  Raises if the launch fails."""
+    """Launch the CUDA kernel of q's type on the current stream (inputs
+    already checked by ``check_inputs``, on a CUDA device).  Returns a new
+    contiguous (B, S, H, D) tensor.  Raises if the launch fails, or if a
+    bf16 input does not suit the tensor-core kernel."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {q.device}")
     b, s, h, d = q.shape
@@ -83,19 +117,30 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    fn = _build.function("flash_attention", "flash_attention_forward",
-                         _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, s, k.shape[1], h, k.shape[2], d,
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                float(scale), int(causal), int(window), DTYPE_CODE[q.dtype],
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError_t {rc}")
-    flash_attention_cuda.launches += 1
+        _launch(q, k, v, out, causal=causal, window=window, scale=scale,
+                stream=stream)
     return out
 
 
+def _launch(q, k, v, out, *, causal: bool, window: int, scale: float,
+            stream: int) -> None:
+    """Call the C entry point of q's type and count the launch."""
+    if q.dtype == torch.bfloat16:
+        check_tensor_core_inputs(q, k, v)
+    fn = _build.function("flash_attention", ENTRY[q.dtype], _ARGTYPES)
+    b, s, h, d = q.shape
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, s, k.shape[1], h, k.shape[2], d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            float(scale), int(causal), int(window), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: cudaError_t {rc}")
+    flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_dtype[
+        str(q.dtype).removeprefix("torch.")] += 1
+
+
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_dtype = {"bfloat16": 0, "float32": 0}

@@ -22,9 +22,13 @@ torch = pytest.importorskip("torch")
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import decode_attention as decode_mod  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention_cuda, split_plan)
-from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+    MAX_SPLITS, MIN_TILES, TILE, decode_attention_cuda, split_plan)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    check_tensor_core_inputs, flash_attention_cuda)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -186,16 +190,174 @@ def test_decode_ring_with_empty_slots(empty):
 
 
 @pytest.mark.parametrize("n_rows,t,n_sms,want", [
-    (8, 2048, 132, (64, 32)),       # the qwen2.5-3b decode step: B 4, KH 2
-    (8, 1999, 132, (64, 32)),
+    (8, 2048, 132, (256, 8)),       # the qwen2.5-3b decode step: B 4, KH 2
+    (8, 1999, 132, (256, 8)),
+    (128, 2096, 132, (2112, 1)),    # the zamba2-2.7b decode step: B 4, KH 32
     (512, 2048, 132, (2048, 1)),    # enough rows: one block each
-    (1, 100, 132, (64, 2)),
-    (2, 64 * 1000 + 1, 132, (64 * 8, 126)),
+    (1, 100, 132, (128, 1)),        # 2 tiles: too few to split
+    (2, 64 * 1000 + 1, 132, (64 * 16, 63)),
+    (1, 64 * 1000, 132, (64 * 8, 125)),    # at most 128 splits
 ])
 def test_split_plan_covers_the_cache(n_rows, t, n_sms, want):
     span, n_splits = split_plan(n_rows, t, n_sms)
     assert (span, n_splits) == want
     assert span % 64 == 0 and (n_splits - 1) * span < t <= n_splits * span
+
+
+@pytest.mark.parametrize("n_rows,t", [
+    (8, 2048), (8, 1999), (128, 2096),      # qwen2.5-3b, zamba2-2.7b steps
+    (8, 1), (8, 63), (8, 64), (8, 65),
+    (1, 4096), (4, 64 * 33 + 1), (2, 64 * 1000 + 1),
+])
+def test_split_plan_streams_every_slot_once(n_rows, t):
+    """The splits tile [0, T) exactly once, every split streams at least
+    MIN_TILES tiles (or all of T's tiles when T has fewer), and the grid is
+    at most one wave of 132 SMs (one block a row when the rows fill it)."""
+    span, n_splits = split_plan(n_rows, t, 132)
+    runs = [(i * span, min(t, (i + 1) * span)) for i in range(n_splits)]
+    covered = np.zeros(t, dtype=np.int64)
+    for lo, hi in runs:
+        assert lo < hi
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    n_tiles = -(-t // TILE)
+    for lo, hi in runs:
+        assert -(-(hi - lo) // TILE) >= min(MIN_TILES, n_tiles)
+    assert n_splits <= MAX_SPLITS
+    assert n_splits == 1 or n_rows * n_splits <= 132
+
+
+def _aligned(shape, dtype=torch.bfloat16):
+    return torch.zeros(shape, dtype=dtype)
+
+
+def _offset(shape, dtype=torch.bfloat16):
+    """A tensor of ``shape`` whose base lies one element past an aligned
+    address."""
+    return torch.zeros(int(np.prod(shape)) + 1, dtype=dtype)[1:].view(shape)
+
+
+@pytest.mark.parametrize("case", ["d 12", "base", "stride", "head stride",
+                                  "pos base", "ok", "ok packed d 80"])
+def test_tensor_core_route_refuses_unaligned_inputs(case):
+    """The bf16 CUDA route's own refusals, checked before a launch: a head
+    dim that is not a multiple of 8, a base address (of q, k, v or pos) or
+    a stride that is not 16-byte aligned.  The CPU route keeps taking
+    them."""
+    b, s, h, kh, d = 1, 16, 4, 2, 16
+    q, k, v = _aligned((b, s, h, d)), _aligned((b, s, kh, d)), \
+        _aligned((b, s, kh, d))
+    if case == "d 12":
+        d = 12
+        q, k, v = _aligned((b, s, h, d)), _aligned((b, s, kh, d)), \
+            _aligned((b, s, kh, d))
+    elif case == "base":
+        k = _offset((b, s, kh, d))
+    elif case == "stride":         # rows of 20 values: a 40-byte stride
+        k = _aligned((b, s, kh, d + 4))[..., :d]
+        v = _aligned((b, s, kh, d + 4))[..., :d]
+    elif case == "head stride":    # heads 20 values apart
+        q = _aligned((b, s, h, d + 4))[..., :d]
+    elif case == "ok packed d 80":
+        qkv = _aligned((b, s, h + 2 * kh, 80))
+        q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kh], qkv[:, :, h + kh:]
+    pos = torch.arange(k.shape[1], dtype=torch.int32)
+    if case == "pos base":
+        pos = torch.arange(-1, k.shape[1], dtype=torch.int32)[1:]
+    if case.startswith("ok"):
+        check_tensor_core_inputs(q, k, v, pos)
+    else:
+        with pytest.raises(ValueError, match="bf16 attention kernel"):
+            check_tensor_core_inputs(q, k, v, pos)
+    got = ops.flash_attention(q, k, v)           # the CPU route takes it
+    assert got.shape == q.shape and torch.isfinite(got.float()).all()
+    got = ops.decode_attention(q[:, :1], k, v, pos)
+    assert got.shape == q[:, :1].shape
+
+
+class _Recorder:
+    """Stands in for ``_build.function``: records the entry point asked
+    for and returns a C function that reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, name, symbol, argtypes, restype=None):
+        def fn(*args):
+            assert len(args) == len(argtypes)
+            self.calls.append((name, symbol))
+            return 0
+        return fn
+
+
+@pytest.mark.parametrize("dtype,symbol", [
+    (torch.bfloat16, "flash_attention_bf16"),
+    (torch.float32, "flash_attention_f32"),
+])
+def test_flash_routes_by_dtype(monkeypatch, dtype, symbol):
+    rec = _Recorder()
+    monkeypatch.setattr(_build, "function", rec)
+    monkeypatch.setattr(flash_attention_cuda, "launches", 0)
+    monkeypatch.setattr(flash_attention_cuda, "launches_by_dtype",
+                        {"bfloat16": 0, "float32": 0})
+    q, k, v = (_aligned(sh, dtype) for sh in ((2, 8, 4, 16), (2, 8, 2, 16),
+                                               (2, 8, 2, 16)))
+    flash_mod._launch(q, k, v, torch.empty_like(q), causal=True, window=0,
+                      scale=0.25, stream=0)
+    assert rec.calls == [("flash_attention", symbol)]
+    assert flash_attention_cuda.launches == 1
+    assert flash_attention_cuda.launches_by_dtype == {
+        "bfloat16": int(dtype == torch.bfloat16),
+        "float32": int(dtype == torch.float32)}
+
+
+@pytest.mark.parametrize("dtype,symbol", [
+    (torch.bfloat16, "decode_attention_bf16"),
+    (torch.float32, "decode_attention_f32"),
+])
+def test_decode_routes_by_dtype(monkeypatch, dtype, symbol):
+    rec = _Recorder()
+    monkeypatch.setattr(_build, "function", rec)
+    monkeypatch.setattr(decode_attention_cuda, "launches", 0)
+    monkeypatch.setattr(decode_attention_cuda, "launches_by_dtype",
+                        {"bfloat16": 0, "float32": 0})
+    b, t, kh, g, d = 2, 300, 2, 8, 16
+    q = _aligned((b, 1, kh * g, d), dtype)
+    k, v = _aligned((b, t, kh, d), dtype), _aligned((b, t, kh, d), dtype)
+    span, n_splits = split_plan(b * kh, t, 132)
+    counters = torch.zeros(8, dtype=torch.int32)
+    decode_mod._launch(q, k, v, torch.arange(t, dtype=torch.int32),
+                       torch.empty_like(q),
+                       torch.empty(b * kh * n_splits * g * (d + 2)),
+                       counters, span=span, n_splits=n_splits, scale=0.25,
+                       stream=0)
+    assert rec.calls == [("decode_attention", symbol)]
+    assert decode_attention_cuda.launches == 1
+    assert decode_attention_cuda.launches_by_dtype == {
+        "bfloat16": int(dtype == torch.bfloat16),
+        "float32": int(dtype == torch.float32)}
+
+
+def test_bf16_route_refuses_before_any_launch(monkeypatch):
+    """A bf16 input the tensor-core kernel cannot take raises before the
+    library is even asked for, and counts no launch."""
+    rec = _Recorder()
+    monkeypatch.setattr(_build, "function", rec)
+    monkeypatch.setattr(flash_attention_cuda, "launches", 0)
+    monkeypatch.setattr(decode_attention_cuda, "launches", 0)
+    q, k, v = _aligned((1, 8, 4, 12)), _aligned((1, 8, 2, 12)), \
+        _aligned((1, 8, 2, 12))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_mod._launch(q, k, v, torch.empty_like(q), causal=True,
+                          window=0, scale=0.25, stream=0)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        decode_mod._launch(q[:, :1], k, v, torch.arange(8, dtype=torch.int32),
+                           torch.empty_like(q[:, :1]), torch.empty(64),
+                           torch.zeros(8, dtype=torch.int32), span=64,
+                           n_splits=1, scale=0.25, stream=0)
+    assert rec.calls == []
+    assert flash_attention_cuda.launches == 0
+    assert decode_attention_cuda.launches == 0
 
 
 # ------------------------------------------------------------- refusals

@@ -14,11 +14,13 @@ print a line and raise on failure:
 3. kernels against their plain PyTorch versions: embedding_bag at the live
    path's shapes (V 200,000, D 64, bag 8, n_bags 1..256), fp32 and bf16,
    weighted and unweighted, indices over the whole vocabulary, over
-   [0, 100) and repeated; flash_attention at the LM prefill's shape (B 4,
-   S 2000, H 16, KH 2, D 128, causal) and window 256, MHA, MQA, D 80, S 1,
-   non-causal S 333, packed q/k/v views, S 65, a window of 100 whose edge
-   falls inside a tile, D 80 non-causal, packed views at D 80 and
-   zamba2-2.7b's shared block (S 2048, H 32, D 80, window 4096);
+   [0, 100) and repeated, for one table (V, D) and, bit for bit, for 1
+   and 8 stacked tables (T, V, D) in one launch; flash_attention at the
+   LM prefill's shape (B 4, S 2000, H 16, KH 2, D 128, causal) and
+   window 256, MHA, MQA, D 80, S 1, non-causal S 333, packed q/k/v
+   views, S 65, a window of 100 whose edge falls inside a tile, D 80
+   non-causal, packed views at D 80 and zamba2-2.7b's shared block
+   (S 2048, H 32, D 80, window 4096);
    decode_attention at the decode step's shape (B 4, T 2048, KH 2, G 8,
    D 128, the last 48 slots empty) and T 1999, MQA with D 80, MHA, empty
    slots at the front, a cache with no valid slot, T 127 and 193, G 1 at
@@ -26,8 +28,9 @@ print a line and raise on failure:
    empty, and G 32; ssd_scan at mamba2-130m's and zamba2-2.7b's prefill
    shapes (B 4, L 2048; H 24, N 128 and H 80, N 64; P 64, G 1) with x, b
    and c strided views of one packed conv output, a ragged L 2000, L 1,
-   G 2 and a ragged P tile; each in fp32 and bf16, y and the final state;
-   bf16 attention also against the plain version in fp32;
+   G 2 and a ragged P tile; each in fp32 and bf16 (bf16 on the
+   tensor-core kernel, fp32 on the scalar one), y and the final state;
+   bf16 attention and SSD scan also against the plain version in fp32;
 4. MT-WND full-width forward, kernel path against plain path, per batch
    bucket 1..32, with forward times: eager (CUDA events, median of 30) and
    device-only (replayed from a CUDA graph, so without the host's launch
@@ -51,22 +54,22 @@ print a line and raise on failure:
    plain path's own distance from a run whose scan is float64.
 
 Launch counts are set to 0 just before phase 5 and read after phase 6
-(every MT-WND forward makes 8 embedding-bag launches), and set to 0 again
-just before each LM's serving runs and read just after them (qwen2.5-3b:
-one flash-attention launch per layer per prefill and one decode-attention
-launch per layer per step; mamba2-130m: one SSD-scan launch per layer per
-prefill; zamba2-2.7b: one SSD-scan launch per Mamba-2 layer and one
-flash-attention launch per shared-block use per prefill, one
-decode-attention launch per shared-block use per step; the attention
-kernels' launches also by input type: the fp32 run's in float32, the
-rest in bfloat16).  Then one JSON line gives each kernel's launches,
-error against its plain version and times at its path's shape (for the
-attention kernels also their design and launches by type): kernel, plain
-version and library call device-only (CUDA graph) and eager, and the
+(every MT-WND forward makes one embedding-bag launch for its 8 tables),
+and set to 0 again just before each LM's serving runs and read just after
+them (qwen2.5-3b: one flash-attention launch per layer per prefill and one
+decode-attention launch per layer per step; mamba2-130m: one SSD-scan
+launch per layer per prefill; zamba2-2.7b: one SSD-scan launch per Mamba-2
+layer and one flash-attention launch per shared-block use per prefill, one
+decode-attention launch per shared-block use per step; the attention and
+SSD-scan kernels' launches also by input type: the fp32 run's in float32,
+the rest in bfloat16). Then one JSON line gives each kernel's design,
+launches, error against its plain version and times at its path's shape
+(for the attention and SSD-scan kernels also launches by type): kernel,
+plain version and library call device-only (CUDA graph) and eager, and the
 bound (bytes over the card's memory rate or flops over its bf16 tensor
-rate, whichever is larger).  The
-last line is ``{"ok": true, "device": {...}}``.  Float32 matrix products
-and convolutions run in full float32 (TF32 off), as the JAX reference
+rate, whichever is larger).  The last line is
+``{"ok": true, "device": {...}}``.  Float32 matrix products and
+convolutions run in full float32 (TF32 off), as the JAX reference
 computes.  Exits non-zero, with no result line, without a card or outside
 the repository.
 """
@@ -311,35 +314,57 @@ def build_phase() -> None:
 
 
 def kernel_phase() -> float:
-    """embedding_bag against its plain version; returns the largest error."""
+    """embedding_bag against its plain version, for one table (within TOL)
+    and for 1 and 8 stacked tables in one launch (bit for bit); returns
+    the largest error."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    v, d, bag = CFG["vocab"], CFG["emb"], CFG["bag"]
-    table32 = torch.randn(v, d, generator=gen, device="cuda")
-    worst = 0.0
+    n_tables, v, d, bag = CFG["n_tables"], CFG["vocab"], CFG["emb"], CFG["bag"]
+    tables32 = torch.randn(n_tables, v, d, generator=gen, device="cuda")
+    worst, n_single, n_stacked = 0.0, 0, 0
     for dtype in (torch.float32, torch.bfloat16):
-        table = table32.to(dtype)
+        tables = tables32.to(dtype)
         for n_bags in (1, 8, 32, 256):
             for hi, label in ((v, "full"), (100, "[0,100)"), (v, "repeat")):
-                idx = torch.randint(0, hi, (n_bags, bag), generator=gen,
-                                    device="cuda", dtype=torch.int32)
+                idx = torch.randint(0, hi, (n_bags, n_tables, bag),
+                                    generator=gen, device="cuda",
+                                    dtype=torch.int32)
                 if label == "repeat":
-                    idx[:, bag // 2:] = idx[:, :1]
-                w = torch.rand(n_bags, bag, generator=gen, device="cuda")
+                    idx[..., bag // 2:] = idx[..., :1]
+                w = torch.rand(n_bags, n_tables, bag, generator=gen,
+                               device="cuda")
                 for weights in (None, w):
-                    got = ops.embedding_bag(idx, table, weights)
-                    want = embedding_bag_ref(idx, table, weights)
+                    name = (f"embedding_bag {dtype} n_bags={n_bags} "
+                            f"idx={label} weighted={weights is not None}")
+                    one = [idx[:, 0].contiguous(), tables[0],
+                           None if weights is None else w[:, 0].contiguous()]
+                    got = ops.embedding_bag(*one)
+                    want = embedding_bag_ref(*one)
                     torch.cuda.synchronize()
                     err = (got.float() - want.float()).abs().max().item()
                     scale = max(1.0, want.float().abs().max().item())
                     if not err <= TOL[dtype] * scale:
                         raise AssertionError(
-                            f"embedding_bag {dtype} n_bags={n_bags} "
-                            f"idx={label} weighted={weights is not None}: "
-                            f"max |diff| {err} > {TOL[dtype] * scale}")
+                            f"{name}: max |diff| {err} > {TOL[dtype] * scale}")
                     worst = max(worst, err)
-    phase("kernel", f"embedding_bag vs plain: 48 cases agree, max |diff| "
-                    f"{worst} (gates {TOL[torch.float32]} fp32, "
-                    f"{TOL[torch.bfloat16]} bf16, relative to max(1, |sum|))")
+                    n_single += 1
+                    for t in (1, n_tables):
+                        many = [idx[:, :t].contiguous(), tables[:t],
+                                None if weights is None
+                                else w[:, :t].contiguous()]
+                        got = ops.embedding_bag(*many)
+                        want = embedding_bag_ref(*many)
+                        if got.shape != (n_bags, t * d) or \
+                                not torch.equal(got, want):
+                            raise AssertionError(
+                                f"{name} T={t} stacked: max |diff| "
+                                f"{(got.float() - want.float()).abs().max()}"
+                                " (gate: bit for bit)")
+                        n_stacked += 1
+    phase("kernel", f"embedding_bag vs plain: {n_single} single-table cases "
+                    f"agree, max |diff| {worst} (gates {TOL[torch.float32]} "
+                    f"fp32, {TOL[torch.bfloat16]} bf16, relative to "
+                    f"max(1, |sum|)); {n_stacked} stacked cases (T 1 and "
+                    f"{n_tables}, one launch each) equal bit for bit")
     return worst
 
 
@@ -850,37 +875,39 @@ def lm_path(run: LMRun) -> dict:
 
 def kernel_line(launches: int, worst: float) -> dict:
     """embedding_bag at the live path's shape: the 8 tables' lookups of one
-    MT-WND forward at batch 32, indices from [0, 100) as the live path
-    draws them."""
+    MT-WND forward at batch 32 in one launch, indices from [0, 100) as the
+    live path draws them.  Library: one F.embedding_bag over the stacked
+    (T·V, D) table with the indices offset by t·V.  Also the same lookups
+    as 8 single-table launches (PR 14's form), device-only."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     n_tables, v, d, bag, n_bags = (CFG["n_tables"], CFG["vocab"], CFG["emb"],
                                    CFG["bag"], 32)
-    tables = [torch.randn(v, d, generator=gen, device="cuda")
-              for _ in range(n_tables)]
-    idx = [torch.randint(0, 100, (n_bags, bag), generator=gen, device="cuda",
-                         dtype=torch.int32) for _ in range(n_tables)]
-    idx64 = [i.long() for i in idx]
-    err = max((ops.embedding_bag(i, t) - embedding_bag_ref(i, t))
-              .abs().max().item() for i, t in zip(idx, tables))
-
-    def kernel():
-        return [ops.embedding_bag(i, t) for i, t in zip(idx, tables)]
-
-    def plain():
-        return [embedding_bag_ref(i, t) for i, t in zip(idx, tables)]
-
-    def library():
-        return [F.embedding_bag(i, t, mode="sum") for i, t in zip(idx64, tables)]
-
+    tables = torch.randn(n_tables, v, d, generator=gen, device="cuda")
+    idx = torch.randint(0, 100, (n_bags, n_tables, bag), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    flat = (idx.long() + torch.arange(n_tables, device="cuda")[:, None] * v
+            ).reshape(n_bags * n_tables, bag)
+    stacked = tables.reshape(n_tables * v, d)
+    per_table = [idx[:, t].contiguous() for t in range(n_tables)]
+    got = ops.embedding_bag(idx, tables)
+    want = embedding_bag_ref(idx, tables)
+    if not torch.equal(got, want):
+        raise AssertionError("embedding_bag line: kernel differs from plain")
+    err = (got - want).abs().max().item()
+    fns = {"ms": lambda: ops.embedding_bag(idx, tables),
+           "plain_ms": lambda: embedding_bag_ref(idx, tables),
+           "library_ms": lambda: F.embedding_bag(flat, stacked, mode="sum")}
     times = {name: (graph_ms(fn), event_ms(fn, 500))
-             for name, fn in (("ms", kernel), ("plain_ms", plain),
-                              ("library_ms", library))}
-    distinct = sum(int(torch.unique(i).numel()) for i in idx)
-    nbytes = (n_tables * n_bags * bag * 4 + distinct * d * 4
-              + n_tables * n_bags * d * 4)
+             for name, fn in fns.items()}
+    eight = graph_ms(lambda: [ops.embedding_bag(i, tables[t])
+                              for t, i in enumerate(per_table)])
+    distinct = sum(int(torch.unique(idx[:, t]).numel())
+                   for t in range(n_tables))
+    nbytes = (idx.numel() * 4 + distinct * d * 4 + n_bags * n_tables * d * 4)
     return {"name": "embedding_bag", "route": "cuda",
             "source": "src/repro_torch/csrc/embedding_bag.cu",
             "replaces": "src/repro/kernels/embedding_bag.py:39",
+            "design": "one launch for all tables: a block per (bag, table)",
             "launches": launches, "max_abs_err": max(err, worst),
             "ms": times["ms"][0], "plain_ms": times["plain_ms"][0],
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -888,6 +915,7 @@ def kernel_line(launches: int, worst: float) -> dict:
             # one eager call after another: the host's launch cost included
             "eager_ms": times["ms"][1], "eager_plain_ms": times["plain_ms"][1],
             "eager_library_ms": times["library_ms"][1],
+            "eight_launches_ms": eight,
             "shape": f"{n_tables} tables x (n_bags {n_bags}, bag {bag}) "
                      f"over ({v}, {d}) fp32, {distinct} distinct rows"}
 
@@ -1057,16 +1085,23 @@ def _ssd_times(case, gen) -> dict:
                      "views of one packed conv output"}
 
 
-def ssd_line(launches: int, by_path: dict, worst: dict) -> dict:
+def ssd_line(launches: int, by_path: dict, by_dtype: dict,
+             worst: dict) -> dict:
     """ssd_scan at one layer of mamba2-130m's prefill (B 4, L 2048, H 24,
-    P 64, N 128, bf16), and the same numbers at zamba2-2.7b's (H 80, N 64).
-    No single PyTorch call computes the SSD scan: library null."""
+    P 64, N 128, bf16: the tensor-core kernel), and the same numbers at
+    zamba2-2.7b's (H 80, N 64).  No single PyTorch call computes the SSD
+    scan: library null."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     main, other = (_ssd_times(case, gen) for case in SSD_CASES[:2])
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:70",
+            "design": "bf16: mma.sync m16n8k16, 8 warps per 64 columns of "
+                      "P (16 rows of P x half of N each), state in "
+                      "registers, C·Bᵀ once per chunk, cp.async ring x2, "
+                      "fp32 operands split hi + lo; fp32: scalar FMAs",
             "launches": launches, "launches_by_path": by_path,
+            "launches_by_dtype": by_dtype,
             "max_abs_err": max(main["err"], *(a for a, _ in worst.values())),
             "max_abs_err_fp32": worst[torch.float32][0],
             "max_rel_err": max(main["rel_err"],
@@ -1116,12 +1151,13 @@ def main() -> int:
     forwards += serve_phase(engine, wl)
     forwards += ribbon_phase(engine, wl)
     bag_launches = embedding_bag_cuda.launches
-    if bag_launches == 0 or bag_launches != CFG["n_tables"] * forwards:
+    if bag_launches == 0 or bag_launches != forwards:
         raise AssertionError(f"embedding_bag launched {bag_launches} times "
-                             f"on the main path, expected {CFG['n_tables']} "
-                             f"x {forwards} forwards")
+                             f"on the main path, expected one for each of "
+                             f"{forwards} forwards")
     phase("launches", f"embedding_bag: {bag_launches} launches on the MT-WND "
-                      f"path = {CFG['n_tables']} x {forwards} forwards")
+                      f"path = 1 x {forwards} forwards (each pools all "
+                      f"{CFG['n_tables']} tables)")
     del engine
 
     # Main paths 2-4: the LMs' serving paths at full width and depth.
@@ -1144,7 +1180,8 @@ def main() -> int:
              decode_line(*launches("decode_attention"),
                          by_dtype["decode_attention"],
                          attn_worst["decode_attention"]),
-             ssd_line(*launches("ssd_scan"), ssd_worst)]
+             ssd_line(*launches("ssd_scan"), by_dtype["ssd_scan"],
+                      ssd_worst)]
     for line in lines:
         phase("kernel", f"{line['name']} at its path's shape, device-only "
                         f"(CUDA graph): kernel {_ms(line['ms'])}, plain "
@@ -1153,7 +1190,8 @@ def main() -> int:
                         f"{line['bound_ms']:.6f} ms ({line['bound_by']}); "
                         f"eager: kernel {_ms(line['eager_ms'])}, plain "
                         f"{_ms(line['eager_plain_ms'])}, library "
-                        f"{_ms(line['eager_library_ms'])}")
+                        f"{_ms(line['eager_library_ms'])}; design: "
+                        f"{line['design']}")
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,67 +1,92 @@
 #!/usr/bin/env python
-"""Quick check of the SSD-scan CUDA kernel alone, on one CUDA card.
+"""Quick check of the SSD-scan CUDA kernels alone, on one CUDA card.
 
-    python scripts/probe_ssd_scan.py
+    python scripts/probe_ssd_scan.py [--variant FILE.cu] [--scalar FILE.cu]
 
-Builds ``src/repro_torch/csrc/ssd_scan.cu`` (nvcc, sm_90a), prints what
-ptxas reports (registers, spills), then at mamba2-130m's and zamba2-2.7b's
-prefill shapes (x, b, c as views of one packed conv output), a ragged L,
-L 1, G 2 and a small case, in fp32 and bf16, runs the kernel and its plain
-version (``kernels.ref.ssd_scan_ref``) on the same inputs and prints y's
-and the final state's max |diff| relative to max |want|; in bf16 also each
-side's max and mean |diff| to the plain version run in fp32.  At the two
-model shapes it prints the kernel's eager time (CUDA events, mean of 10)
-and one eager call of the plain version.  It gates nothing: ``chip_smoke.py``
-holds the kernel to its gates.  A short first call for work on the kernel
-alone, which ``chip_smoke.py`` takes minutes to reach.
+Builds ``src/repro_torch/csrc/ssd_scan.cu`` (nvcc, sm_90a) and prints what
+ptxas reports (registers, spills).  Then holds both routes (bf16: the
+tensor-core kernel; fp32: the scalar kernel) to ``chip_smoke.py``'s gates
+in its 12 SSD cases, printing each case's error, and times them at
+mamba2-130m's and zamba2-2.7b's prefill shapes (x, b, c as views of one
+packed conv output), device-only from CUDA graphs, beside the plain
+version.  Other sources are built with the same flags and timed beside
+them on the same bf16 inputs, each held against the plain version:
+
+* ``--variant FILE.cu``: a source with the repository's ``ssd_scan_bf16``
+  entry point (an uncommitted form of the kernel);
+* ``--scalar FILE.cu``: a source with the older one-entry interface
+  ``ssd_scan_forward(..., dtype, stream)``, such as the scalar kernel that
+  ran both types before the tensor-core kernel (``git show
+  <commit>:src/repro_torch/csrc/ssd_scan.cu``).
+
+A short first call for work on the kernel alone, which ``chip_smoke.py``
+takes minutes to reach.  Exits non-zero if a gate fails.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 import torch
-import torch.nn.functional as F
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
 
+import chip_smoke as smoke  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.ref import ssd_scan_ref  # noqa: E402
 
-# (B, L, H, P, G, N, x/b/c as views of one packed tensor)
-CASES = [(4, 2048, 24, 64, 1, 128, True), (4, 2048, 80, 64, 1, 64, True),
-         (2, 2000, 8, 64, 1, 128, False), (2, 1, 8, 64, 1, 128, False),
-         (2, 300, 8, 64, 2, 64, False), (1, 100, 4, 16, 1, 16, False)]
+_LOADED: list[Path] = []
 
 
-def inputs(gen, b, l, h, p, g, n, packed, dtype):
-    xbc = (torch.randn(b, l, h * p + 2 * g * n, generator=gen, device="cuda")
-           * 0.5).to(dtype)
-    x = xbc[..., :h * p].reshape(b, l, h, p)
-    bm = xbc[..., h * p:h * p + g * n].reshape(b, l, g, n)
-    cm = xbc[..., h * p + g * n:].reshape(b, l, g, n)
-    if not packed:
-        x, bm, cm = x.contiguous(), bm.contiguous(), cm.contiguous()
-    dt = F.softplus(torch.randn(b, l, h, generator=gen, device="cuda"))
-    a_log = torch.log(torch.linspace(1, 16, h, device="cuda"))
-    return x, dt, a_log, bm, cm
+def load(path: Path, symbol: str, argtypes):
+    """Build ``path`` with the repository's nvcc flags (beside the
+    repository's libraries) and return its ``symbol``."""
+    out = _build.BUILD_DIR / "variants" / f"lib{symbol}-{len(_LOADED)}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    _LOADED.append(out)
+    log = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+         str(out), str(path)], capture_output=True, text=True)
+    print(f"{path}: " + " | ".join(
+        ln.strip() for ln in (log.stdout + log.stderr).splitlines()
+        if "registers" in ln or "spill" in ln or "error" in ln))
+    if log.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {path}")
+    fn = getattr(ctypes.CDLL(str(out)), symbol)
+    fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+    return fn
 
 
-def eager_ms(fn, iters: int) -> float:
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def caller(fn, extra=()):
+    """ops.ssd_scan's CUDA call through another library's ``fn``."""
+    def run(x, dt, a_log, b, c):
+        bsz, slen, h, p = x.shape
+        y = torch.empty_like(x, memory_format=torch.contiguous_format)
+        state = torch.empty((bsz, h, p, b.shape[3]), device=x.device)
+        rc = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+                c.data_ptr(), y.data_ptr(), state.data_ptr(), bsz, slen, h, p,
+                b.shape[2], b.shape[3], *x.stride()[:3], *dt.stride(),
+                *b.stride()[:3], *c.stride()[:3], *extra,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"launch failed: cudaError_t {rc}")
+        return y, state
+    return run
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--variant", type=Path, action="append", default=[])
+    parser.add_argument("--scalar", type=Path, action="append", default=[])
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -72,33 +97,42 @@ def main() -> int:
     print(f"build {time.perf_counter() - t0:.2f} s")
     print("\n".join(ln for ln in log.splitlines() if "registers" in ln
                     or "spill" in ln))
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    for case in CASES:
-        for dtype in (torch.float32, torch.bfloat16):
-            args = inputs(gen, *case, dtype)
-            y, s = ops.ssd_scan(*args)
-            y_want, s_want = ssd_scan_ref(*args)
-            torch.cuda.synchronize()
-            top = y_want.float().abs().max().item()
-            rel_y = (y.float() - y_want.float()).abs().max().item() / top
-            rel_s = ((s - s_want).abs().max() / s_want.abs().max()).item()
-            line = (f"{case} {dtype}: y {rel_y:.3g}, state {rel_s:.3g} "
-                    f"x max |want| (max |y| {top:.3g})")
+    others = {f"variant {p.name}": caller(load(p, "ssd_scan_bf16",
+                                               ssd_mod._ARGTYPES))
+              for p in args.variant}
+    others.update({f"scalar {p.name}": caller(load(
+        p, "ssd_scan_forward", ssd_mod._ARGTYPES[:-1] + [ctypes.c_int,
+                                                        ctypes.c_void_p]),
+        extra=(1,)) for p in args.scalar})
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    failed = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in smoke.SSD_CASES:
+            name = f"{case[0]} {str(dtype)[6:]}"
+            try:
+                err, rel = smoke._ssd_gate(name, smoke._ssd_inputs(gen, case,
+                                                                   dtype))
+                print(f"{name}: pass, y max |diff| {err:.4g} "
+                      f"({rel:.3g} x max |want|)", flush=True)
+            except AssertionError as exc:
+                failed += 1
+                print(f"{name}: FAIL {exc}", flush=True)
+    for case in smoke.SSD_CASES[:2]:
+        for dtype in (torch.bfloat16, torch.float32):
+            inputs = smoke._ssd_inputs(gen, case, dtype)
+            fns = {"kernel": lambda: ops.ssd_scan(*inputs),
+                   "plain": lambda: ssd_scan_ref(*inputs)}
             if dtype == torch.bfloat16:
-                x, dt, a_log, b, c = args
-                exact = ssd_scan_ref(x.float(), dt, a_log, b.float(),
-                                     c.float())[0]
-                for name, got in (("kernel", y), ("plain", y_want)):
-                    e = (got.float() - exact).abs()
-                    line += (f"; {name} to fp32: max {e.max().item():.4g}, "
-                             f"mean {e.mean().item():.4g}")
-            print(line, flush=True)
-            if case[1] == 2048:
-                ops.ssd_scan(*args)
-                print(f"    kernel {eager_ms(lambda: ops.ssd_scan(*args), 10)}"
-                      f" ms, plain {eager_ms(lambda: ssd_scan_ref(*args), 1)}"
-                      " ms (eager)", flush=True)
-    return 0
+                fns.update({k: (lambda f=f: f(*inputs))
+                            for k, f in others.items()})
+            want = ssd_scan_ref(*inputs)[0].float()
+            for key, fn in fns.items():
+                err = (fn()[0].float() - want).abs().max().item()
+                calls = (1, 2) if key == "plain" else (10, 5)
+                print(f"{case[0]} {str(dtype)[6:]} {key}: "
+                      f"{smoke.graph_ms(fn, *calls):.5f} ms device-only, "
+                      f"y max |diff| to plain {err:.4g}", flush=True)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

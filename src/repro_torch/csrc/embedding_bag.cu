@@ -1,20 +1,27 @@
-// Embedding bag for Hopper (sm_90a): for each bag, the sum of the table rows
-// named by its indices, with optional per-lookup fp32 weights.
+// Embedding bag for Hopper (sm_90a): for each bag of each table, the sum of
+// the table rows named by its indices, with optional per-lookup fp32
+// weights.
 //
 // Replaces the TPU kernel src/repro/kernels/embedding_bag.py::embedding_bag
 // (a Pallas kernel whose grid walks (bag, lookup) in order, fetching one row
 // per step through scalar-prefetched indices and accumulating in the output
-// block).  Here there is no sequential grid: one thread block per bag, each
-// thread owning a VEC-wide column slice of D, walking the bag's lookups in
-// order j = 0 .. bag-1 with the running sum in fp32 registers, and writing
-// the result once in the table's type.  The block stages its own indices
-// (and weights) in shared memory, which takes the place of the TPU's scalar
-// prefetch.  Duplicate indices count again.
+// block).  Here there is no sequential grid: one thread block per (bag,
+// table), each thread owning a VEC-wide column slice of D, walking the bag's
+// lookups in order j = 0 .. bag-1 with the running sum in fp32 registers,
+// and writing the result once in the table's type.  The block stages its
+// own indices (and weights) in shared memory, which takes the place of the
+// TPU's scalar prefetch.  Duplicate indices count again.
+//
+// One launch serves every table of a model: tables (T, V, D), indices and
+// weights (n_bags, T, bag) in the model's own layout (MT-WND's categorical
+// input), output (n_bags, T·D), the slab its forward concatenates after the
+// dense features.  The reference's single-table call is the T = 1 case.
 //
 // Bound: memory.  The work is one row gather per lookup plus one output row
 // per bag (index bytes + row bytes + output bytes), with one add (two ops
 // weighted) per loaded element.  At the live serving path's shapes (n_bags
-// <= 32, bag 8, D 64) the bytes are a few KB and the launch cost dominates.
+// <= 32, T 8, bag 8, D 64) the bytes are a few hundred KB and the launch
+// cost dominates: hence one launch for all tables, not one per table.
 //
 // Arithmetic: products and sums are rounded separately (__fmul_rn,
 // __fadd_rn, no fused multiply-add), so the kernel matches the plain PyTorch
@@ -59,17 +66,20 @@ __device__ __forceinline__ float accumulate(float acc, float x, float w,
   return weighted ? __fadd_rn(acc, __fmul_rn(x, w)) : __fadd_rn(acc, x);
 }
 
-// grid (n_bags, ceil(d / (VEC * blockDim.x))); block <= kMaxThreads threads.
+// grid (n_bags, T, ceil(d / (VEC * blockDim.x))); block <= kMaxThreads
+// threads.  Block (b, t) pools bag b of table t: indices and weights at
+// (b · T + t) · bag, output at (b · T + t) · d.
 template <typename T, int VEC, bool WEIGHTED>
 __global__ void __launch_bounds__(kMaxThreads)
 embedding_bag_kernel(const int32_t* __restrict__ indices,
-                     const T* __restrict__ table,
+                     const T* __restrict__ tables,
                      const float* __restrict__ weights, T* __restrict__ out,
-                     int bag, int d) {
+                     int bag, int vocab, int d) {
   __shared__ int32_t s_idx[kIdxChunk];
   __shared__ float s_w[kIdxChunk];
-  const int64_t b = blockIdx.x;
-  const int col = (blockIdx.y * blockDim.x + threadIdx.x) * VEC;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * gridDim.y + blockIdx.y;
+  const T* table = tables + static_cast<int64_t>(blockIdx.y) * vocab * d;
+  const int col = (blockIdx.z * blockDim.x + threadIdx.x) * VEC;
   const bool active = col < d;
   const int32_t* bag_idx = indices + b * bag;
   float acc0 = 0.0f, acc1 = 0.0f;
@@ -107,54 +117,61 @@ embedding_bag_kernel(const int32_t* __restrict__ indices,
 }
 
 template <typename T>
-cudaError_t launch(const int32_t* indices, const T* table,
-                   const float* weights, T* out, int n_bags, int bag, int d,
-                   cudaStream_t stream) {
+cudaError_t launch(const int32_t* indices, const T* tables,
+                   const float* weights, T* out, int n_bags, int n_tables,
+                   int bag, int vocab, int d, cudaStream_t stream) {
   // Two columns a thread when every row start is aligned for it.
   const bool vec2 = d % 2 == 0 &&
-                    reinterpret_cast<uintptr_t>(table) % (2 * sizeof(T)) == 0 &&
+                    reinterpret_cast<uintptr_t>(tables) % (2 * sizeof(T)) == 0 &&
                     reinterpret_cast<uintptr_t>(out) % (2 * sizeof(T)) == 0;
   const int vec = vec2 ? 2 : 1;
   const int lanes = (d + vec - 1) / vec;
   int threads = ((lanes + 31) / 32) * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
-  const dim3 grid(n_bags, (lanes + threads - 1) / threads);
+  const dim3 grid(n_bags, n_tables, (lanes + threads - 1) / threads);
   const bool weighted = weights != nullptr;
   if (vec2 && weighted) {
-    embedding_bag_kernel<T, 2, true>
-        <<<grid, threads, 0, stream>>>(indices, table, weights, out, bag, d);
+    embedding_bag_kernel<T, 2, true><<<grid, threads, 0, stream>>>(
+        indices, tables, weights, out, bag, vocab, d);
   } else if (vec2) {
-    embedding_bag_kernel<T, 2, false>
-        <<<grid, threads, 0, stream>>>(indices, table, weights, out, bag, d);
+    embedding_bag_kernel<T, 2, false><<<grid, threads, 0, stream>>>(
+        indices, tables, weights, out, bag, vocab, d);
   } else if (weighted) {
-    embedding_bag_kernel<T, 1, true>
-        <<<grid, threads, 0, stream>>>(indices, table, weights, out, bag, d);
+    embedding_bag_kernel<T, 1, true><<<grid, threads, 0, stream>>>(
+        indices, tables, weights, out, bag, vocab, d);
   } else {
-    embedding_bag_kernel<T, 1, false>
-        <<<grid, threads, 0, stream>>>(indices, table, weights, out, bag, d);
+    embedding_bag_kernel<T, 1, false><<<grid, threads, 0, stream>>>(
+        indices, tables, weights, out, bag, vocab, d);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32 table and output, 1 = bfloat16.  weights may be null.
+// indices (n_bags, T, bag) int32, tables (T, V, D), weights (n_bags, T, bag)
+// fp32 or null, out (n_bags, T, D), all contiguous.  n_bags <= 2^31 - 1,
+// 1 <= T <= 65535.  dtype: 0 = float32 tables and output, 1 = bfloat16.
 // Returns the cudaError_t of the launch (0 on success).
-extern "C" int embedding_bag_forward(const void* indices, const void* table,
+extern "C" int embedding_bag_forward(const void* indices, const void* tables,
                                      const void* weights, void* out,
-                                     int n_bags, int bag, int d, int dtype,
+                                     int n_bags, int n_tables, int bag,
+                                     int vocab, int d, int dtype,
                                      void* stream) {
   if (n_bags <= 0 || d <= 0) return 0;
+  if (n_tables <= 0 || n_tables > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* idx = static_cast<const int32_t*>(indices);
   const auto* w = static_cast<const float*>(weights);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch(idx, static_cast<const float*>(table), w,
-                  static_cast<float*>(out), n_bags, bag, d, s);
+    return launch(idx, static_cast<const float*>(tables), w,
+                  static_cast<float*>(out), n_bags, n_tables, bag, vocab, d,
+                  s);
   }
   if (dtype == 1) {
-    return launch(idx, static_cast<const __nv_bfloat16*>(table), w,
-                  static_cast<__nv_bfloat16*>(out), n_bags, bag, d, s);
+    return launch(idx, static_cast<const __nv_bfloat16*>(tables), w,
+                  static_cast<__nv_bfloat16*>(out), n_bags, n_tables, bag,
+                  vocab, d, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -28,7 +28,9 @@ def _route(name: str, device: torch.device):
 
 def embedding_bag(indices: torch.Tensor, table: torch.Tensor,
                   weights: torch.Tensor | None = None) -> torch.Tensor:
-    """indices (n_bags, bag) int32; table (V, D) → (n_bags, D)."""
+    """indices (n_bags, bag) int32; table (V, D) → (n_bags, D).  Or every
+    table of a model in one launch: indices (n_bags, T, bag) int32; tables
+    stacked (T, V, D) → (n_bags, T·D), table t pooled by indices[:, t]."""
     _bag.check_inputs(indices, table, weights)
     if _route("embedding_bag", table.device):
         return _bag.embedding_bag_cuda(indices, table, weights)

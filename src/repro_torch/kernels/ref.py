@@ -12,7 +12,10 @@ import torch
 
 def embedding_bag_ref(indices: torch.Tensor, table: torch.Tensor,
                       weights: torch.Tensor | None = None) -> torch.Tensor:
-    """indices (n_bags, bag) → (n_bags, D) sums of table rows.
+    """indices (n_bags, bag) and table (V, D) → (n_bags, D) sums of table
+    rows; or indices (n_bags, T, bag) and T stacked tables (T, V, D) →
+    (n_bags, T·D), table t pooled by ``indices[:, t]`` (one table is the
+    T = 1 case).
 
     Lookups are added in order, j = 0 .. bag-1, from zero, in float32
     (product and sum rounded separately when weighted), and the sum is cast
@@ -20,15 +23,21 @@ def embedding_bag_ref(indices: torch.Tensor, table: torch.Tensor,
     type, so the two agree bit for bit in float32 and differ by bf16
     rounding in bf16.
     """
-    n_bags, bag = indices.shape
-    rows = table.index_select(0, indices.reshape(-1).long())
-    rows = rows.reshape(n_bags, bag, table.shape[1]).float()
-    out = torch.zeros(n_bags, table.shape[1], dtype=torch.float32,
+    if table.dim() == 2:
+        indices, table = indices[:, None], table[None]
+        weights = None if weights is None else weights[:, None]
+    n_bags, n_tables, bag = indices.shape
+    vocab, d = table.shape[1:]
+    first = torch.arange(n_tables, device=table.device)[:, None] * vocab
+    rows = table.reshape(-1, d).index_select(
+        0, (indices.long() + first).reshape(-1))
+    rows = rows.reshape(n_bags, n_tables, bag, d).float()
+    out = torch.zeros(n_bags, n_tables, d, dtype=torch.float32,
                       device=table.device)
     for j in range(bag):
-        row = rows[:, j]
-        out += row if weights is None else row * weights[:, j, None]
-    return out.to(table.dtype)
+        row = rows[:, :, j]
+        out += row if weights is None else row * weights[:, :, j, None]
+    return out.reshape(n_bags, n_tables * d).to(table.dtype)
 
 
 MASKED = -1e30   # the score of a masked entry, as in the reference

@@ -2,18 +2,30 @@
 
 Replaces the TPU kernel ``repro/kernels/ssd_scan.py::ssd_scan`` (Pallas, a
 sequential grid over chunks with the (N, P) state in VMEM).  The CUDA
-kernel runs one thread block per (batch, head, 32-column tile of P); the
-block loops over 64-row chunks with the fp32 state tile in shared memory,
-computes each chunk's in-chunk term, carried-state term and state update as
-the TPU kernel does, and writes the final state in (B, H, P, N).  It reads
-x (B, L, H, P) and b, c (B, L, G, N) through their strides (views into the
-conv output, as the model passes them), maps head h to group h // (H // G),
-and applies dt and ``-exp(a_log)`` itself, so nothing is repeated, moved or
-pre-scaled.  It is bound by bytes; this first version computes with scalar
-fp32 FMAs.
+kernels run one thread block per (batch, head, tile of P); the block loops
+over 64-row chunks with the fp32 state on chip, computes each chunk's
+in-chunk term, carried-state term and state update as the TPU kernel does,
+and writes the final state in (B, H, P, N).  They read x (B, L, H, P) and
+b, c (B, L, G, N) through their strides (views into the conv output, as the
+model passes them), map head h to group h // (H // G), and apply dt and
+``-exp(a_log)`` themselves, so nothing is repeated, moved or pre-scaled.
 
-``ssd_scan_cuda.launches`` counts the launches, so a run can show that its
-path went through the kernel.
+The route is chosen by dtype, up front:
+
+* bfloat16 (the serving type) goes to ``ssd_scan_bf16``, the tensor-core
+  kernel: a block of 8 warps per 64 columns of P, the state in registers as
+  mma.sync.m16n8k16 accumulators (each warp 16 rows of P and half of N),
+  C·Bᵀ once per chunk, the chunks by cp.async into a 2-stage ring, the
+  fp32 operands of the state products split into bf16 hi + lo.  It takes
+  P and N multiples of 8 and 16-byte aligned bases and strides;
+  ``check_tensor_core_inputs`` raises on anything else before the
+  launch.
+* float32 goes to ``ssd_scan_f32``, fp32 FMAs, so fp32 results stay within
+  2e-5 of the plain version.
+
+``ssd_scan_cuda.launches`` counts the launches and
+``ssd_scan_cuda.launches_by_dtype`` splits them by input type, so a run can
+show that its bf16 path went through the tensor-core kernel.
 """
 
 from __future__ import annotations
@@ -25,10 +37,13 @@ import torch
 from . import _build
 from .flash_attention import DTYPE_CODE
 
-CHUNK = 64           # the kernel's chunk length (rows)
-MAX_STATE = 256      # largest N its shared memory takes
+CHUNK = 64           # the kernels' chunk length (rows)
+MAX_STATE = 256      # largest N their shared memory takes
+# The C entry point of each input type: the tensor-core kernel for bf16,
+# the fp32 FMA kernel for float32.
+ENTRY = {torch.bfloat16: "ssd_scan_bf16", torch.float32: "ssd_scan_f32"}
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-             + [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
 
 
 def check_inputs(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -70,32 +85,61 @@ def check_inputs(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         raise ValueError("ssd_scan: sizes must fit in int32")
 
 
+def check_tensor_core_inputs(x: torch.Tensor, b: torch.Tensor,
+                             c: torch.Tensor) -> None:
+    """Raise on a bf16 input the tensor-core kernel cannot take: P or N not
+    a multiple of 8, or a base address or a stride other than the last of
+    x, b, c that is not 16-byte aligned (its loads are 16-byte copies of 8
+    bf16 values).  The plain version on the CPU takes any of these."""
+    p, n = x.shape[3], b.shape[3]
+    if p % 8 != 0 or n % 8 != 0:
+        raise ValueError(f"bf16 ssd_scan kernel: P {p} and N {n} must be "
+                         "multiples of 8")
+    for t in (x, b, c):
+        if t.data_ptr() % 16 != 0:
+            raise ValueError("bf16 ssd_scan kernel: a base address is not "
+                             "16-byte aligned")
+        if any(st % 8 != 0 for st in t.stride()[:3]):
+            raise ValueError(f"bf16 ssd_scan kernel: strides {t.stride()} "
+                             "are not multiples of 8 elements")
+
+
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                   b: torch.Tensor, c: torch.Tensor):
-    """Launch the CUDA kernel on the current stream (inputs already checked
-    by ``check_inputs``, on a CUDA device).  Returns new contiguous y
-    (B, L, H, P) in x's type and final state (B, H, P, N) float32.  Raises
-    if the launch fails."""
+    """Launch the CUDA kernel of x's type on the current stream (inputs
+    already checked by ``check_inputs``, on a CUDA device).  Returns new
+    contiguous y (B, L, H, P) in x's type and final state (B, H, P, N)
+    float32.  Raises if the launch fails, or if a bf16 input does not suit
+    the tensor-core kernel."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_cuda needs CUDA tensors, got {x.device}")
     bsz, slen, h, p = x.shape
-    g, n = b.shape[2], b.shape[3]
+    n = b.shape[3]
     if bsz > 65535 or h > 65535:
         raise ValueError(f"ssd_scan_cuda: B {bsz} or H {h} > 65535")
     y = torch.empty((bsz, slen, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
-    fn = _build.function("ssd_scan", "ssd_scan_forward", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
-                c.data_ptr(), y.data_ptr(), state.data_ptr(),
-                bsz, slen, h, p, g, n, *x.stride()[:3], *dt.stride(),
-                *b.stride()[:3], *c.stride()[:3], DTYPE_CODE[x.dtype],
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError_t {rc}")
-    ssd_scan_cuda.launches += 1
+        _launch(x, dt, a_log, b, c, y, state, stream=stream)
     return y, state
 
 
+def _launch(x, dt, a_log, b, c, y, state, *, stream: int) -> None:
+    """Call the C entry point of x's type and count the launch."""
+    if x.dtype == torch.bfloat16:
+        check_tensor_core_inputs(x, b, c)
+    fn = _build.function("ssd_scan", ENTRY[x.dtype], _ARGTYPES)
+    bsz, slen, h, p = x.shape
+    rc = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+            c.data_ptr(), y.data_ptr(), state.data_ptr(),
+            bsz, slen, h, p, b.shape[2], b.shape[3], *x.stride()[:3],
+            *dt.stride(), *b.stride()[:3], *c.stride()[:3], stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError_t {rc}")
+    ssd_scan_cuda.launches += 1
+    ssd_scan_cuda.launches_by_dtype[str(x.dtype).removeprefix("torch.")] += 1
+
+
 ssd_scan_cuda.launches = 0
+ssd_scan_cuda.launches_by_dtype = {"bfloat16": 0, "float32": 0}

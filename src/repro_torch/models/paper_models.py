@@ -3,9 +3,10 @@
 Counterpart of ``repro/models/paper_models.py``.  MT-WND is the multi-task
 wide-and-deep recommender: eight embedding tables pooled by bag sums, a
 shared bottom MLP, one tower per task and a wide linear part, summed into
-per-task logits and squashed by a sigmoid.  Its embedding lookups go
-through ``kernels.ops.embedding_bag``: the CUDA kernel on a card, the plain
-version on the CPU.  The matrix products stay ``nn.Linear``, as the
+per-task logits and squashed by a sigmoid.  Its tables are held stacked,
+(n_tables, V, D), and all their lookups go through one call of
+``kernels.ops.embedding_bag``: one launch of the CUDA kernel on a card, the
+plain version on the CPU.  The matrix products stay ``nn.Linear``, as the
 reference leaves them to XLA outside any Pallas kernel.
 
 Each model exposes ``init(generator, preset, device) -> module``,
@@ -64,10 +65,10 @@ class MTWND(nn.Module):
         super().__init__()
         cfg = MTWND_PRESETS[preset]
         self.preset = preset
-        self.tables = nn.ParameterList(
-            nn.Parameter(torch.empty(cfg["vocab"], cfg["emb"], device=device),
-                         requires_grad=False)
-            for _ in range(cfg["n_tables"]))
+        # (n_tables, V, D): model.tables[i] is table i
+        self.tables = nn.Parameter(
+            torch.empty(cfg["n_tables"], cfg["vocab"], cfg["emb"],
+                        device=device), requires_grad=False)
         in_dim = cfg["dense"] + cfg["n_tables"] * cfg["emb"]
         self.bottom = MLP([in_dim, *cfg["bottom"]], last_act=True,
                           device=device)
@@ -82,11 +83,7 @@ class MTWND(nn.Module):
         """``use_kernel=False`` pools with the plain version on any device;
         it exists to hold the kernel path against it."""
         bag_fn = ops.embedding_bag if use_kernel else embedding_bag_ref
-        cat_by_table = cat.transpose(0, 1).contiguous()   # (n_tables, B, bag)
-        feats = [dense]
-        for i, table in enumerate(self.tables):
-            feats.append(bag_fn(cat_by_table[i], table))
-        x = torch.cat(feats, dim=-1)
+        x = torch.cat([dense, bag_fn(cat, self.tables)], dim=-1)
         deep = self.bottom(x)
         task_logits = torch.cat([tower(deep) for tower in self.towers], dim=-1)
         return torch.sigmoid(task_logits + self.wide(x))
@@ -120,8 +117,10 @@ def mtwnd_init(generator: torch.Generator, preset: str = "smoke",
 def mtwnd_from_numpy(params, preset: str = "smoke", device=None) -> MTWND:
     """The port's MT-WND from the reference's parameter tree (the output of
     ``repro.models.paper_models.mtwnd_init``, converted leaf by leaf with
-    ``np.asarray``).  The reference stores ``x @ w + b`` with ``w`` of shape
-    (in, out); ``nn.Linear`` holds (out, in), so weights are transposed."""
+    ``np.asarray``).  The reference's list of tables is stacked into
+    ``model.tables``.  The reference stores ``x @ w + b`` with ``w`` of
+    shape (in, out); ``nn.Linear`` holds (out, in), so weights are
+    transposed."""
     dev = resolve_device(device)
     model = MTWND(preset, device=dev)
 

@@ -1,6 +1,8 @@
 """Port parity: the embedding bag's plain PyTorch version against the JAX
 reference (``repro.kernels.ref.embedding_bag_ref``) and the Pallas kernel
-in interpret mode, plus the wrapper's refusals.
+in interpret mode, for one table and for T stacked tables pooled in one
+call (against the reference's kernel run once per table), plus the
+wrapper's refusals.
 
 Inputs come from a numpy seed and go to both packages.  Tolerances:
 * unweighted float32 is bit-exact against the Pallas kernel: both add the
@@ -116,6 +118,24 @@ def _refusal_cases():
         "non-contiguous table": ((idx, torch.zeros(32, 64).T, None),
                                  ValueError),
         "device mismatch": ((idx.to("meta"), table, None), ValueError),
+        "4-d tables": ((idx[:, None, None], torch.zeros(1, 2, 64, 32), None),
+                       ValueError),
+        "stacked tables, 2-d indices": ((idx, torch.zeros(3, 64, 32), None),
+                                        ValueError),
+        "one table, 3-d indices": ((idx[:, None], table, None), ValueError),
+        "mismatched T": ((torch.zeros(4, 2, 8, dtype=torch.int32),
+                          torch.zeros(3, 64, 32), None), ValueError),
+        "no tables": ((torch.zeros(4, 0, 8, dtype=torch.int32),
+                       torch.zeros(0, 64, 32), None), ValueError),
+        "stacked weights shape": ((torch.zeros(4, 3, 8, dtype=torch.int32),
+                                   torch.zeros(3, 64, 32), w[:, None]),
+                                  ValueError),
+        "non-contiguous stack": ((torch.zeros(4, 3, 8, dtype=torch.int32),
+                                  torch.zeros(64, 3, 32).transpose(0, 1),
+                                  None), ValueError),
+        "non-contiguous stacked indices": (
+            (torch.zeros(4, 8, 3, dtype=torch.int32).transpose(1, 2),
+             torch.zeros(3, 64, 32), None), ValueError),
     }
 
 
@@ -132,13 +152,74 @@ def test_cuda_launcher_refuses_cpu_tensors():
         embedding_bag_cuda(idx, torch.zeros(8, 4))
 
 
+def test_cuda_launcher_refuses_cpu_stacked_tables():
+    idx = torch.zeros(2, 3, 4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        embedding_bag_cuda(idx, torch.zeros(3, 8, 4))
+
+
 def test_cpu_path_never_counts_a_launch():
     before = embedding_bag_cuda.launches
     idx, table, w = _inputs(4, 8, 64, 32, seed=3, weighted=True)
     ops.embedding_bag(torch.from_numpy(idx), torch.from_numpy(table))
     ops.embedding_bag(torch.from_numpy(idx), torch.from_numpy(table),
                       torch.from_numpy(w))
+    idx3, tables, w3 = _stacked(4, 3, 8, 64, 32, seed=3, weighted=True)
+    ops.embedding_bag(torch.from_numpy(idx3), torch.from_numpy(tables),
+                      torch.from_numpy(w3))
     assert embedding_bag_cuda.launches == before == 0
+
+
+def _stacked(n_bags, n_tables, bag, v, d, seed, weighted=False):
+    """T tables (T, V, D) and indices (n_bags, T, bag) in MT-WND's layout."""
+    rng = np.random.default_rng(seed)
+    tables = (rng.standard_normal((n_tables, v, d)) * 0.5).astype(np.float32)
+    idx = rng.integers(0, v, (n_bags, n_tables, bag)).astype(np.int32)
+    w = (rng.uniform(size=(n_bags, n_tables, bag)).astype(np.float32)
+         if weighted else None)
+    return idx, tables, w
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("n_tables", [1, 3, 8])
+def test_stacked_matches_pallas_per_table(n_tables, weighted, dtype):
+    """T stacked tables in one call against the reference's Pallas kernel
+    (interpret mode) run once per table, its outputs side by side: bit for
+    bit unweighted in float32, within F32_TOL weighted (as
+    ``test_weighted_matches_reference``), bf16 within BF16_TOL."""
+    idx, tables, w = _stacked(6, n_tables, 5, 48, 24, seed=20 + n_tables,
+                              weighted=weighted)
+    jdt, tdt = DTYPES[dtype]
+    want = np.concatenate([_f32(jops.embedding_bag(
+        jnp.asarray(idx[:, t]), jnp.asarray(tables[t]).astype(jdt),
+        None if w is None else jnp.asarray(w[:, t]), interpret=True))
+        for t in range(n_tables)], axis=1)
+    got = ops.embedding_bag(torch.from_numpy(idx),
+                            torch.from_numpy(tables).to(tdt),
+                            None if w is None else torch.from_numpy(w))
+    assert got.dtype == tdt and got.shape == (6, n_tables * 24)
+    if dtype == "float32" and not weighted:
+        np.testing.assert_array_equal(_f32(got), want)
+    else:
+        tol = F32_TOL if dtype == "float32" else BF16_TOL
+        np.testing.assert_allclose(_f32(got), want, **tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_stacked_equals_single_tables_bit_for_bit(dtype):
+    """The stacked plain version is the single-table one side by side:
+    table t's slab of the output is exactly its own call."""
+    idx, tables, w = _stacked(5, 4, 6, 40, 16, seed=9, weighted=True)
+    tdt = DTYPES[dtype][1]
+    tt = torch.from_numpy(tables).to(tdt)
+    for weights in (None, torch.from_numpy(w)):
+        got = embedding_bag_ref(torch.from_numpy(idx), tt, weights)
+        for t in range(4):
+            one = embedding_bag_ref(
+                torch.from_numpy(idx[:, t]).contiguous(), tt[t],
+                None if weights is None else weights[:, t].contiguous())
+            assert torch.equal(got[:, 16 * t:16 * (t + 1)], one)
 
 
 def test_plain_adds_in_order_from_zero():

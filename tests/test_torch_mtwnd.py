@@ -58,6 +58,35 @@ def test_plain_path_equals_kernel_path_on_cpu(model):
         tpm.mtwnd_apply(model, tb, use_kernel=False).numpy())
 
 
+def test_converter_stacks_the_reference_tables(params, model):
+    """``mtwnd_from_numpy`` stacks the reference's list of tables into one
+    (n_tables, V, D) tensor; ``model.tables[i]`` is table i."""
+    cfg = tpm.MTWND_PRESETS["smoke"]
+    assert model.tables.shape == (cfg["n_tables"], cfg["vocab"], cfg["emb"])
+    assert model.tables.is_contiguous()
+    for i, table in enumerate(params["tables"]):
+        np.testing.assert_array_equal(model.tables[i].numpy(),
+                                      np.asarray(table))
+
+
+def test_forward_pools_every_table_in_one_call(model, monkeypatch):
+    """One ``ops.embedding_bag`` call a forward (one launch on a card), on
+    the stacked tables and the batch's own (B, n_tables, bag) indices."""
+    calls = []
+    real = tpm.ops.embedding_bag
+
+    def spy(indices, tables, weights=None):
+        calls.append((tuple(indices.shape), tables.data_ptr()))
+        return real(indices, tables, weights)
+
+    monkeypatch.setattr(tpm.ops, "embedding_bag", spy)
+    _, tb = _batch(8, seed=4)
+    tpm.mtwnd_apply(model, tb)
+    cfg = tpm.MTWND_PRESETS["smoke"]
+    assert calls == [((8, cfg["n_tables"], cfg["bag"]),
+                      model.tables.data_ptr())]
+
+
 def test_presets_equal_reference():
     assert tpm.MTWND_PRESETS == jpm.MTWND_PRESETS
 

@@ -265,3 +265,244 @@ def test_reference_interpret_kernel_is_what_the_oracle_is():
     y_c, _ = jssm.ssd_chunked(*_jax(arrays, "float32"), 16)
     _close(y_k, y_c, CHUNKED_TOL["float32"])
     assert jax.devices()[0].platform == "cpu"
+
+
+# ------------------------------------------- the bf16 tensor-core kernel
+
+
+def _chip_gates():
+    """The SSD gates of ``chip_smoke.py`` (the card's check of the kernel),
+    read from the script itself so the two cannot drift apart."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.SSD_F32_TOL, mod.SSD_BF16_TOL, mod.SSD_MEAN_SLACK
+
+
+def _split(v):
+    """fp32 v as bf16 hi + lo (hi = v rounded, lo = the rest rounded), the
+    kernel's split of an fp32 operand into two tensor-core passes."""
+    hi = v.bfloat16().float()
+    return hi, (v - hi).bfloat16().float()
+
+
+def _tc_emulation(x, dt, a_log, b, c, chunk=64, drop_update=None):
+    """The arithmetic of ``csrc/ssd_scan.cu``'s bf16 tensor-core kernel, chunk
+    by chunk, in torch on the CPU: xdt = x · dt rounded to x's type (dt
+    rounded first); cum = the fp64 running sum of the fp32 dt · A; S = C·Bᵀ
+    from x's type, summed in fp32; M = S ∘ exp(fp32(cum_i - cum_j)) rounded
+    to x's type; y = exp(cum) · (C · (state_hi + state_lo)) + M · xdt in
+    fp32, rounded once; state = exp(cum_last) · state + Bᵀ · (xdt · decay)
+    with xdt · decay split into hi + lo.  ``drop_update`` leaves one
+    chunk's state update out (a fault the gate must catch)."""
+    bsz, slen, h, p = x.shape
+    a = -torch.exp(a_log.float())
+    xdt = (x.float() * dt.to(x.dtype).float()[..., None]).to(x.dtype).float()
+    da = dt.float() * a                                      # (B, L, H)
+    bh = ssm.per_head(b, h, 2).float()                       # (B, L, H, N)
+    ch = ssm.per_head(c, h, 2).float()
+    state = torch.zeros((bsz, h, p, b.shape[3]), dtype=torch.float32)
+    ys = []
+    for k, t0 in enumerate(range(0, slen, chunk)):
+        sl = slice(t0, min(t0 + chunk, slen))
+        q = sl.stop - sl.start
+        cum = torch.cumsum(da[:, sl].double(), dim=1)        # (B, q, H)
+        last = cum[:, -1]                                    # (B, H)
+        seg = (cum[:, :, None] - cum[:, None, :]).float()    # (B, i, j, H)
+        tri = torch.ones(q, q, dtype=torch.bool).tril()[None, :, :, None]
+        lmat = torch.where(tri, torch.exp(torch.where(tri, seg, 0.0)), 0.0)
+        s = torch.einsum("bihn,bjhn->bijh", ch[:, sl], bh[:, sl])
+        m = (s * lmat).to(x.dtype).float()
+        y_diag = torch.einsum("bijh,bjhp->bihp", m, xdt[:, sl])
+        hi, lo = _split(state)
+        y_off = (torch.einsum("bihn,bhpn->bihp", ch[:, sl], hi)
+                 + torch.einsum("bihn,bhpn->bihp", ch[:, sl], lo))
+        ys.append((y_off * torch.exp(cum.float())[..., None] + y_diag)
+                  .to(x.dtype))
+        if k == drop_update:
+            continue
+        dec = torch.exp((last[:, None] - cum).float())       # (B, q, H)
+        w_hi, w_lo = _split(xdt[:, sl] * dec[..., None])
+        state = (state * torch.exp(last.float())[..., None, None]
+                 + torch.einsum("bihp,bihn->bhpn", w_hi, bh[:, sl])
+                 + torch.einsum("bihp,bihn->bhpn", w_lo, bh[:, sl]))
+    return torch.cat(ys, dim=1), state
+
+
+def _gate_inputs(seed, b, slen, h, p, g, n, dtype):
+    """Inputs as ``chip_smoke.py::_ssd_inputs`` draws them: x, b, c ~
+    N(0, 0.5^2), dt = softplus(N(0, 1)), a_log = log(linspace(1, 16, H))."""
+    rng = np.random.default_rng(seed)
+    xbc = torch.from_numpy((rng.standard_normal((b, slen, h * p + 2 * g * n))
+                            * 0.5).astype(np.float32)).to(DTYPES[dtype][1])
+    x = xbc[..., :h * p].reshape(b, slen, h, p)
+    bm = xbc[..., h * p:h * p + g * n].reshape(b, slen, g, n)
+    cm = xbc[..., h * p + g * n:].reshape(b, slen, g, n)
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((b, slen, h)).astype(np.float32)))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h))
+    return x, dt, a_log, bm, cm
+
+
+def _chip_gate(got, want, exact):
+    """``chip_smoke.py::_ssd_gate`` on the CPU: y within SSD_BF16_TOL and the
+    state within SSD_F32_TOL of the plain version, relative to max |want|;
+    y's max |diff| to the fp32 plain version within one bf16 step at the top
+    of the plain bf16 version's own, its mean within SSD_MEAN_SLACK x
+    mean |exact| of it.  Returns the failures."""
+    f32_tol, bf16_tol, slack = _chip_gates()
+    fails = []
+    for part, g, w, tol in (("y", got[0], want[0], bf16_tol),
+                            ("state", got[1], want[1], f32_tol)):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.isfinite(g.float()).all()
+        rel = ((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+        if not rel <= tol:
+            fails.append(f"{part} {rel} > {tol}")
+    mine = (got[0].float() - exact).abs()
+    plain = (want[0].float() - exact).abs()
+    top = exact.abs().max().item()
+    step = 2.0 ** (np.floor(np.log2(top)) - 7)
+    for stat, sl in ((torch.max, step),
+                     (torch.mean, slack * exact.abs().mean().item())):
+        if not stat(mine).item() <= stat(plain).item() + sl:
+            fails.append(f"{stat.__name__} |diff| to fp32 {stat(mine).item()}"
+                         f" > {stat(plain).item()} + {sl}")
+    return fails
+
+
+TC_SHAPES = [pytest.param((2, 300, 4, 32, 1, 32), id="G1"),
+             pytest.param((2, 300, 4, 32, 2, 32), id="G2")]
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES)
+def test_tensor_core_arithmetic_passes_the_chip_gate(shape):
+    """The bf16 kernel's roundings (bf16 C·Bᵀ and M·xdt, M rounded, the
+    fp32 operands split hi + lo) pass the bf16 gate the card applies."""
+    x, dt, a_log, b, c = _gate_inputs(10, *shape, "bfloat16")
+    got = _tc_emulation(x, dt, a_log, b, c)
+    want = ops.ssd_scan(x, dt, a_log, b, c)
+    exact = ops.ssd_scan(x.float(), dt, a_log, b.float(), c.float())[0]
+    assert _chip_gate(got, want, exact) == []
+
+
+def test_chip_gate_catches_a_dropped_state_update():
+    """The same gate fails the emulation with one chunk's state update left
+    out: it tells a right split from a wrong kernel."""
+    x, dt, a_log, b, c = _gate_inputs(10, 2, 300, 4, 32, 1, 32, "bfloat16")
+    got = _tc_emulation(x, dt, a_log, b, c, drop_update=1)
+    want = ops.ssd_scan(x, dt, a_log, b, c)
+    exact = ops.ssd_scan(x.float(), dt, a_log, b.float(), c.float())[0]
+    assert _chip_gate(got, want, exact)
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES)
+def test_tensor_core_arithmetic_matches_pallas_kernel_fp32(shape):
+    """The same chunked arithmetic (fp64 running sum, decays from fp64
+    differences, hi + lo splits) on fp32 inputs against the reference's
+    Pallas kernel in interpret mode (chunk 60)."""
+    b, slen, h, p, g, n = shape
+    arrays = _inputs(11, b, slen, h, p, g, n)
+    y, s = _tc_emulation(*_torch(arrays, "float32"))
+    y_want, s_want = jops.ssd_scan(*_jax(arrays, "float32"), chunk=60,
+                                   interpret=True)
+    _close(y, y_want, CHUNKED_TOL["float32"])
+    _close(s, s_want, CHUNKED_TOL["float32"])
+
+
+def _aligned(shape, dtype=torch.bfloat16):
+    """A tensor of ``shape`` whose base address is 16-byte aligned."""
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 8, dtype=dtype)
+    off = (-buf.data_ptr() % 16) // buf.element_size()
+    return buf[off:off + n].view(shape)
+
+
+class _Recorder:
+    """Stands in for ``_build.function``: records the entry point asked
+    for and returns a C function that reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, name, symbol, argtypes, restype=None):
+        def fn(*args):
+            assert len(args) == len(argtypes)
+            self.calls.append((name, symbol))
+            return 0
+        return fn
+
+
+def _launch_args(dtype, p=16, n=16, x=None, b=None):
+    bsz, slen, h, g = 1, 8, 4, 2
+    x = _aligned((bsz, slen, h, p), dtype) if x is None else x
+    b = _aligned((bsz, slen, g, n), dtype) if b is None else b
+    return (x, torch.ones(bsz, slen, h), torch.zeros(h), b, b.clone(),
+            torch.empty(x.shape, dtype=dtype),
+            torch.empty(bsz, h, x.shape[3], b.shape[3]))
+
+
+@pytest.mark.parametrize("dtype,symbol", [
+    (torch.bfloat16, "ssd_scan_bf16"),
+    (torch.float32, "ssd_scan_f32"),
+])
+def test_ssd_routes_by_dtype(monkeypatch, dtype, symbol):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    rec = _Recorder()
+    monkeypatch.setattr(_build, "function", rec)
+    monkeypatch.setattr(ssd_scan_cuda, "launches", 0)
+    monkeypatch.setattr(ssd_scan_cuda, "launches_by_dtype",
+                        {"bfloat16": 0, "float32": 0})
+    ssd_mod._launch(*_launch_args(dtype), stream=0)
+    assert rec.calls == [("ssd_scan", symbol)]
+    assert ssd_scan_cuda.launches == 1
+    assert ssd_scan_cuda.launches_by_dtype == {
+        "bfloat16": int(dtype == torch.bfloat16),
+        "float32": int(dtype == torch.float32)}
+
+
+def _tc_case(name):
+    if name == "P 12":
+        return _launch_args(torch.bfloat16, p=12)
+    if name == "N 20":
+        return _launch_args(torch.bfloat16, n=20)
+    if name == "x base":
+        buf = _aligned((8 * 4 * 16 + 8,))
+        return _launch_args(torch.bfloat16, x=buf[1:1 + 512].view(1, 8, 4, 16))
+    if name == "b row stride":
+        wide = _aligned((1, 8, 2, 20))
+        return _launch_args(torch.bfloat16, n=16, b=wide[..., :16])
+    if name == "ok packed":
+        xbc = _aligned((1, 8, 4 * 16 + 2 * 2 * 16))
+        x = xbc[..., :64].reshape(1, 8, 4, 16)
+        return _launch_args(torch.bfloat16, x=x,
+                            b=xbc[..., 64:96].reshape(1, 8, 2, 16))
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["P 12", "N 20", "x base", "b row stride",
+                                  "ok packed"])
+def test_bf16_route_refuses_before_any_launch(monkeypatch, name):
+    """A bf16 input the tensor-core kernel cannot take raises before the
+    library is even asked for, and counts no launch; strided views of one
+    packed conv output, as the model passes them, are taken."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    rec = _Recorder()
+    monkeypatch.setattr(_build, "function", rec)
+    monkeypatch.setattr(ssd_scan_cuda, "launches", 0)
+    args = _tc_case(name)
+    if name.startswith("ok"):
+        ssd_mod._launch(*args, stream=0)
+        assert ssd_scan_cuda.launches == 1
+        return
+    with pytest.raises(ValueError, match="bf16 ssd_scan kernel"):
+        ssd_mod._launch(*args, stream=0)
+    assert rec.calls == [] and ssd_scan_cuda.launches == 0
+    x, dt, a_log, b, c = args[:5]
+    y, _ = ops.ssd_scan(x, dt, a_log, b, c)     # the CPU route takes it
+    assert y.shape == x.shape and torch.isfinite(y.float()).all()

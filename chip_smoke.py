@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Drives the port (``src/repro_torch``) on its main paths: the MT-WND
-serving pool at full width, and the serving paths of three LMs at full
-width and depth (qwen2.5-3b, dense GQA; mamba2-130m, Mamba-2 SSM;
+serving pool at full width, RIBBON's own search over the FCFS pool
+simulator for the paper's five models, and the serving paths of three LMs
+at full width and depth (qwen2.5-3b, dense GQA; mamba2-130m, Mamba-2 SSM;
 zamba2-2.7b, Mamba-2 with a shared attention block), in phases that each
 print a line and raise on failure:
 
@@ -31,6 +32,13 @@ print a line and raise on failure:
    G 2 and a ragged P tile; each in fp32 and bf16 (bf16 on the
    tensor-core kernel, fp32 on the scalar one), y and the final state;
    bf16 attention and SSD scan also against the plain version in fp32;
+   embedding_bag also on indices outside [0, V) (negative, >= V, the
+   int32 extremes), bit for bit; fcfs_scan, bit for bit (QoS counts,
+   latencies, start times, final carries), on 64 mtwnd pools x 1500
+   queries, a 3-load-factor x 16-pool grid with one service table and
+   with a table per row, pools at max_instances, all-zero pools, bursts
+   of simultaneous queries with equal service times (ties), and 8, 64 and
+   130 slots;
 4. MT-WND full-width forward, kernel path against plain path, per batch
    bucket 1..32, with forward times: eager (CUDA events, median of 30) and
    device-only (replayed from a CUDA graph, so without the host's launch
@@ -39,7 +47,13 @@ print a line and raise on failure:
    requests; prints the QoS rate and service percentiles;
 6. RIBBON's ask/tell loop over the live pool (up to 16 rounds), and its GP
    posterior on the card against the same fit on the CPU;
-7. LM serving, for each of the three LMs, with random weights from a seed:
+7. RIBBON's search path (the quickstart) on the card: ``make_paper_setup``
+   for each of the five paper models, the homogeneous optimum
+   (``best_homogeneous``); for mtwnd also ``run_ribbon`` (budget 80, start
+   (5, 0, 0)) and the exhaustive optimum; each held against the same path
+   run on the CPU in this process: the same configs in the same order,
+   the same QoS rates bit for bit, the same pools;
+8. LM serving, for each of the three LMs, with random weights from a seed:
    4 requests (2000 prompt tokens, max_len 2048 for qwen2.5-3b; 2048 and
    2096 for the SSM and hybrid LMs, so their plain path runs the
    reference's 256-token chunks), prefill then 48 greedy decode steps.
@@ -55,7 +69,9 @@ print a line and raise on failure:
 
 Launch counts are set to 0 just before phase 5 and read after phase 6
 (every MT-WND forward makes one embedding-bag launch for its 8 tables),
-and set to 0 again just before each LM's serving runs and read just after
+set to 0 again just before phase 7 and read after it (one fcfs_scan
+launch per simulator dispatch, and no other kernel), and set to 0 again
+just before each LM's serving runs and read just after
 them (qwen2.5-3b: one flash-attention launch per layer per prefill and one
 decode-attention launch per layer per step; mamba2-130m: one SSD-scan
 launch per layer per prefill; zamba2-2.7b: one SSD-scan launch per Mamba-2
@@ -66,8 +82,8 @@ the rest in bfloat16). Then one JSON line gives each kernel's design,
 launches, error against its plain version and times at its path's shape
 (for the attention and SSD-scan kernels also launches by type): kernel,
 plain version and library call device-only (CUDA graph) and eager, and the
-bound (bytes over the card's memory rate or flops over its bf16 tensor
-rate, whichever is larger).  The last line is
+bound (bytes over the card's memory rate or operations over its rate for
+their type, bf16 tensor or fp32, whichever is larger).  The last line is
 ``{"ok": true, "device": {...}}``.  Float32 matrix products and
 convolutions run in full float32 (TF32 off), as the JAX reference
 computes.  Exits non-zero, with no result line, without a card or outside
@@ -92,15 +108,18 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.core import RibbonOptimizer, SearchSpace  # noqa: E402
+from repro_torch.core import RibbonOptimizer, SearchSpace, run_ribbon  # noqa: E402
 from repro_torch.core.gp import gp_posterior  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda  # noqa: E402
+from repro_torch.kernels.fcfs_scan import BIG as FCFS_BIG  # noqa: E402
+from repro_torch.kernels.fcfs_scan import fcfs_scan_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
-                                     embedding_bag_ref, flash_attention_ref,
-                                     per_head, ssd_scan_ref)
+                                     embedding_bag_ref, fcfs_scan_ref,
+                                     flash_attention_ref, per_head,
+                                     ssd_scan_ref)
 from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
@@ -110,11 +129,19 @@ from repro_torch.models.paper_models import (MTWND_PRESETS,  # noqa: E402
                                              make_random_batch, mtwnd_apply,
                                              mtwnd_init)
 from repro_torch.serving.engine import DEFAULT_CELLS, ClusterEngine  # noqa: E402
+from repro_torch.serving.instance import (AWS_INSTANCES,  # noqa: E402
+                                          MODEL_PROFILES, PAPER_POOLS,
+                                          service_table_for)
+from repro_torch.serving.pool import (best_homogeneous,  # noqa: E402
+                                      make_paper_setup, paper_workload)
+from repro_torch.serving.simulator import (_cold_free0,  # noqa: E402
+                                           _expand_slots, _qos_threshold_f32)
 from repro_torch.models.transformer import get_model  # noqa: E402
 from repro_torch.serving.workload import WorkloadSpec  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor rate (data sheet)
+FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 # Kernel vs plain version: both add the same float32 values in the same
 # order with separate roundings, so they are expected to agree exactly;
 # the gates allow one float32 rounding at these magnitudes and one bf16
@@ -222,6 +249,10 @@ LM_RUNS = [
     LMRun("zamba2-2.7b", 4, 2048, 2096, 48,
           {"ssd_scan": 54, "flash_attention": 9}, {"decode_attention": 9}),
 ]
+
+PAPER_MODELS = ("mtwnd", "dien", "candle", "resnet50", "vgg19")
+# The search path's anchor (the quickstart): mtwnd, 1500 queries, seed 0.
+ANCHOR = dict(model="mtwnd", qos_target=0.99, budget=80, start=(5, 0, 0))
 
 
 def phase(name: str, msg: str) -> None:
@@ -365,6 +396,24 @@ def kernel_phase() -> float:
                     f"fp32, {TOL[torch.bfloat16]} bf16, relative to "
                     f"max(1, |sum|)); {n_stacked} stacked cases (T 1 and "
                     f"{n_tables}, one launch each) equal bit for bit")
+    # Indices outside [0, V), as the reference takes them: a negative one
+    # wraps once, then every one is clamped to [0, V - 1].
+    n_out = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tables = tables32.to(dtype)
+        idx = torch.randint(-2 * v, 2 * v, (32, n_tables, bag), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        idx[0, :, :4] = torch.tensor([-2 ** 31, 2 ** 31 - 1, -1, v],
+                                     dtype=torch.int32)
+        for args in ((idx[:, 0].contiguous(), tables[0]), (idx, tables)):
+            if not torch.equal(ops.embedding_bag(*args),
+                               embedding_bag_ref(*args)):
+                raise AssertionError(f"embedding_bag {dtype}, indices outside "
+                                     "[0, V): kernel differs from plain")
+            n_out += 1
+    phase("kernel", f"embedding_bag on indices outside [0, V) (negative, "
+                    f">= V, int32 extremes): {n_out} cases (one table and "
+                    f"{n_tables} stacked, fp32 and bf16) equal bit for bit")
     return worst
 
 
@@ -546,6 +595,97 @@ def ssd_phase() -> dict:
     return worst
 
 
+def _fcfs_inputs(model: str, configs, n_slots: int, factors=(1.0,),
+                 dists=None):
+    """fcfs_scan's operands on the card for a paper model's stream (1500
+    queries, seed 0): arrivals (W, 1500) for the load ``factors`` (divided
+    in float64, then cast), service (1, n_types, 1500) or, with ``dists``,
+    one table per row from that batch distribution's stream (the same
+    arrivals), and cold slot layouts of ``configs`` padded to ``n_slots``."""
+    profile = MODEL_PROFILES[model]
+    types = [AWS_INSTANCES[n] for n in PAPER_POOLS[model]["diverse"]]
+    wl = paper_workload(model)
+    arrivals = wl.arrivals[None] / np.asarray(factors, np.float64)[:, None]
+    tables = [service_table_for(profile, types, wl)]
+    if dists is not None:
+        tables = []
+        for dist in dists:
+            other = paper_workload(model, batch_dist=dist)
+            if not np.array_equal(other.arrivals, wl.arrivals):
+                raise AssertionError(f"{dist} stream has other arrivals")
+            tables.append(service_table_for(profile, types, other))
+    tos, active = _expand_slots(configs, len(types), n_slots)
+
+    def dev(x, dtype=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).cuda()
+
+    return (dev(arrivals), dev(np.stack(tables)), dev(tos, np.int32),
+            torch.arange(n_slots, dtype=torch.float32, device="cuda"),
+            dev(_cold_free0(active)),
+            _qos_threshold_f32(profile.qos_latency))
+
+
+def _configs(rng, bounds, n: int) -> np.ndarray:
+    return np.stack([rng.integers(0, b + 1, n) for b in bounds], axis=1)
+
+
+def _fcfs_cases():
+    """(label, operands) of the simulator kernel phase."""
+    rng = np.random.default_rng(8)
+    batch = _configs(rng, (8, 10, 12), 64)
+    batch[0] = 0
+    grid = batch[:16]
+    ties = _fcfs_inputs("mtwnd", [(8, 10, 12), (20, 0, 0), (1, 1, 1),
+                                  (0, 0, 0)], 40)
+    # bursts of 50 queries at one instant, every service 5 ms: many idle
+    # slots at once and many busy slots freeing at the same time
+    ties = (torch.floor(torch.arange(1500, device="cuda") / 50)[None]
+            .float() * 0.002, torch.full_like(ties[1], 0.005), *ties[2:])
+    return [
+        ("batch: 64 mtwnd configs x 1500 queries, S 40",
+         _fcfs_inputs("mtwnd", batch, 40)),
+        ("grid: 3 load factors x 16 configs, one table",
+         _fcfs_inputs("mtwnd", grid, 40, factors=(0.8, 1.0, 1.3))),
+        ("grid: 3 rows x 16 configs, a table per row",
+         _fcfs_inputs("mtwnd", grid, 40, factors=(0.8, 1.0, 1.3),
+                      dists=("lognormal", "gaussian", "bucketed-small"))),
+        ("configs at max_instances 40",
+         _fcfs_inputs("mtwnd", [(10, 10, 20), (40, 0, 0), (0, 0, 40)], 40)),
+        ("all-zero rows", _fcfs_inputs("dien", [(0, 0, 0)] * 3 + [(2, 3, 4)],
+                                       40)),
+        ("ties: bursts at one instant, equal service", ties),
+        ("S 64", _fcfs_inputs("candle", _configs(rng, (20, 20, 24), 32), 64)),
+        ("S 8", _fcfs_inputs("vgg19", _configs(rng, (2, 3, 3), 16), 8)),
+        ("S 130", _fcfs_inputs("resnet50", _configs(rng, (40, 40, 50), 16),
+                               130)),
+    ]
+
+
+def simulator_phase() -> int:
+    """fcfs_scan against its plain version on the card, bit for bit:
+    QoS counts, latencies, start times and final carries.  Returns the
+    number of lanes checked."""
+    lanes = 0
+    cases = _fcfs_cases()
+    for label, (arr, svc, tos, prio, free0, qos_t) in cases:
+        got = ops.fcfs_scan(arr, svc, tos, prio, free0, qos_t, want_lat=True,
+                            want_start=True)
+        want = fcfs_scan_ref(arr, svc, tos, prio, free0, qos_t, FCFS_BIG,
+                             want_lat=True, want_start=True)
+        torch.cuda.synchronize()
+        for part, g, w in zip(("counts", "latencies", "start times",
+                               "final carries"), got, want):
+            if g.shape != w.shape or not torch.equal(g, w):
+                raise AssertionError(f"fcfs_scan {label}: {part} differ from "
+                                     "the plain version (gate: bit for bit)")
+        lanes += got.counts.numel()
+    phase("kernel", f"fcfs_scan vs plain: {len(cases)} cases "
+                    f"({'; '.join(c[0] for c in cases)}), {lanes} lanes: "
+                    "counts, latencies, start times and final carries equal "
+                    "bit for bit")
+    return lanes
+
+
 def forward_phase() -> None:
     """MT-WND full width, kernel path vs plain path per bucket."""
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -622,6 +762,64 @@ def ribbon_phase(engine: ClusterEngine, wl) -> int:
     phase("ribbon", f"GP posterior card vs CPU: max |diff| mean {dm:.3g}, "
                     f"std {ds:.3g} (gates {GP_TOL[0]}, {GP_TOL[1]})")
     return forwards
+
+
+def _search(model: str, device: str) -> dict:
+    """RIBBON's search path for one paper model on ``device``:
+    make_paper_setup, then the smallest homogeneous pool of the first type
+    meeting the target (best_homogeneous); for the anchor model also the
+    quickstart's search (run_ribbon, the evaluator's batch path given) and
+    the exhaustive optimum."""
+    t0 = time.perf_counter()
+    ev, space, profile = make_paper_setup(model, device=device)
+    out = {"ev": ev, "homog": best_homogeneous(ev, 0, space.prices,
+                                               ANCHOR["qos_target"])}
+    if model == ANCHOR["model"]:
+        trace = run_ribbon(space, ev, ANCHOR["qos_target"],
+                           budget=ANCHOR["budget"], start=ANCHOR["start"],
+                           evaluate_qos_batch=ev.batch, device=device)
+        out["evals"] = [(e.config, e.qos_rate) for e in trace.evaluations]
+        out["best"] = trace.best_feasible()
+        out["n_evals"] = ev.n_evals
+        out["exhaustive"] = ev.exhaustive(space, ANCHOR["qos_target"])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def search_path() -> int:
+    """RIBBON's own main path on the card, for the five paper models, held
+    against the same path on the CPU in this process: the same homogeneous
+    pools, and for mtwnd the same evaluated configs in the same order with
+    the same QoS rates bit for bit, the same best pool and the same
+    exhaustive optimum.  Returns the simulator dispatches made on the
+    card."""
+    dispatches = 0
+    for model in PAPER_MODELS:
+        card, cpu = _search(model, "cuda"), _search(model, "cpu")
+        dispatches += card["ev"].sim.n_dispatches
+        for key in ("homog", "evals", "best", "n_evals", "exhaustive"):
+            if card.get(key) != cpu.get(key):
+                raise AssertionError(f"search {model}: {key} on the card "
+                                     f"{card.get(key)} != CPU {cpu.get(key)}")
+        count, cost = card["homog"]
+        msg = (f"{model}: homogeneous optimum {count} x "
+               f"{PAPER_POOLS[model]['diverse'][0]} at ${cost:.3f}/h")
+        if "best" in card:
+            best = card["best"]
+            if best is None:
+                raise AssertionError("search: no feasible pool")
+            ex_cfg, ex_cost, _ = card["exhaustive"]
+            msg += (f"; RIBBON best pool {best.config} at ${best.cost:.3f}/h, "
+                    f"QoS {best.qos_rate}, after {len(card['evals'])} "
+                    f"evaluations ({card['n_evals']} pools simulated, the "
+                    f"homogeneous sweep included); exhaustive "
+                    f"optimum {ex_cfg} at ${ex_cost:.3f}/h")
+        phase("search", msg + f"; card {card['s']:.2f} s, CPU {cpu['s']:.2f} "
+                              f"s (host clock, set-up included); the same "
+                              "results on both")
+    return dispatches
 
 
 def _greedy(logits):
@@ -1118,8 +1316,79 @@ def ssd_line(launches: int, by_path: dict, by_dtype: dict,
                 "eager_plain_ms", "flops", "bytes")}}
 
 
+def fcfs_line(launches: int, lanes: int) -> dict:
+    """fcfs_scan at the search path's batch shape: 64 mtwnd configs x 1500
+    queries, S 40, latencies written (the batch lane), and without them
+    (the grid lane's counts).  Also one batch-lane dispatch of the
+    simulator end to end (host clock: slot layouts up, the kernel,
+    latencies down, the host's mean) on the card and on the CPU.  No single
+    PyTorch call computes the scan: library null."""
+    _, (arr, svc, tos, prio, free0, qos_t) = _fcfs_cases()[0]
+    n_w, nq = arr.shape
+    n_b, n_s = tos.shape
+
+    def kernel(want_lat=True):
+        return ops.fcfs_scan(arr, svc, tos, prio, free0, qos_t,
+                             want_lat=want_lat)
+
+    def plain():
+        return fcfs_scan_ref(arr, svc, tos, prio, free0, qos_t, FCFS_BIG,
+                             want_lat=True)
+
+    got, want = kernel(), plain()
+    for g, w in zip(got, want):
+        if (g is None) != (w is None) or (g is not None
+                                          and not torch.equal(g, w)):
+            raise AssertionError("fcfs_scan line: kernel differs from plain")
+    times = {"ms": (graph_ms(kernel, 20, 5), event_ms(kernel, 50)),
+             "plain_ms": (graph_ms(plain, 1, 2), event_ms(plain, 2))}
+    counts_ms = graph_ms(lambda: kernel(False), 20, 5)
+    cfgs = _configs(np.random.default_rng(8), (8, 10, 12), 64)
+    host = {}
+    for device, runs in (("cuda", 20), ("cpu", 3)):
+        sim = make_paper_setup("mtwnd", device=device)[0].sim
+        sim.qos(cfgs)
+        spans = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            sim.qos(cfgs)
+            spans.append(time.perf_counter() - t0)
+        host[device] = float(np.median(spans)) * 1e3
+    # each input read once, each output written once
+    nbytes = 4 * (arr.numel() + svc.numel() + tos.numel() + prio.numel()
+                  + free0.numel() + n_w * n_b * (1 + nq + n_s))
+    # per lane and query: S idle tests, S key selects, S - 1 argmin
+    # compares, then max, add, subtract and the QoS compare
+    n_ops = n_w * n_b * nq * (3 * n_s + 3)
+    by_ops, by_bytes = n_ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    ms = times["ms"][0]
+    return {"name": "fcfs_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/fcfs_scan.cu",
+            "replaces": "src/repro/serving/simulator.py:313",
+            "replaces_note": "no Pallas kernel: XLA lax.scan (_simulate_scan "
+                             ":313, _grid_lane_qos_counts :395)",
+            "design": "a warp per lane (workload row, pool), the slots' "
+                      "carry in registers, a 5-round shuffle argmin on "
+                      "(key, slot) per query, arrivals and service tiles "
+                      "in shared memory",
+            "launches": launches, "max_abs_err": 0.0, "lanes_checked": lanes,
+            "ms": ms, "plain_ms": times["plain_ms"][0],
+            "bound_ms": max(by_ops, by_bytes) * 1e3,
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "library_ms": None,
+            "eager_ms": times["ms"][1], "eager_plain_ms": times["plain_ms"][1],
+            "eager_library_ms": None,
+            "counts_only_ms": counts_ms, "ns_per_query": ms * 1e6 / nq,
+            "lanes_per_s": n_w * n_b / ms * 1e3,
+            "plain_lanes_per_s": n_w * n_b / times["plain_ms"][0] * 1e3,
+            "dispatch_host_ms": host["cuda"], "dispatch_host_ms_cpu":
+            host["cpu"], "ops": n_ops, "bytes": nbytes,
+            "shape": f"W {n_w}, B {n_b}, nq {nq}, S {n_s}, 3 types, "
+                     "latencies written"}
+
+
 COUNTED = (embedding_bag_cuda, flash_attention_cuda, decode_attention_cuda,
-           ssd_scan_cuda)
+           ssd_scan_cuda, fcfs_scan_cuda)
 
 
 def reset_counts() -> None:
@@ -1139,6 +1408,7 @@ def main() -> int:
     worst = kernel_phase()
     attn_worst = attention_phase()
     ssd_worst = ssd_phase()
+    fcfs_lanes = simulator_phase()
     forward_phase()
 
     # Main path 1: the MT-WND serving pool and RIBBON's search over it.
@@ -1160,7 +1430,21 @@ def main() -> int:
                       f"{CFG['n_tables']} tables)")
     del engine
 
-    # Main paths 2-4: the LMs' serving paths at full width and depth.
+    # Main path 2: RIBBON's own search over the pool simulator.
+    reset_counts()
+    dispatches = search_path()
+    counts = {fn.__name__[:-5]: fn.launches for fn in COUNTED}
+    scan_launches = counts.pop("fcfs_scan")
+    if scan_launches == 0 or scan_launches != dispatches or any(
+            counts.values()):
+        raise AssertionError(f"search path: fcfs_scan launched "
+                             f"{scan_launches} times for {dispatches} "
+                             f"simulator dispatches; others {counts}")
+    phase("launches", f"fcfs_scan: {scan_launches} launches on the search "
+                      f"path = 1 x {dispatches} simulator dispatches; no "
+                      "other kernel")
+
+    # Main paths 3-5: the LMs' serving paths at full width and depth.
     by_path, by_dtype = {}, {}
     for run in LM_RUNS:
         by_path[run.arch], dtypes = lm_path(run)
@@ -1181,7 +1465,8 @@ def main() -> int:
                          by_dtype["decode_attention"],
                          attn_worst["decode_attention"]),
              ssd_line(*launches("ssd_scan"), by_dtype["ssd_scan"],
-                      ssd_worst)]
+                      ssd_worst),
+             fcfs_line(scan_launches, fcfs_lanes)]
     for line in lines:
         phase("kernel", f"{line['name']} at its path's shape, device-only "
                         f"(CUDA graph): kernel {_ms(line['ms'])}, plain "

@@ -27,8 +27,11 @@
 // __fadd_rn, no fused multiply-add), so the kernel matches the plain PyTorch
 // version in repro_torch/kernels/ref.py bit for bit in fp32 and bf16.
 //
-// Plain C interface, loaded from Python with ctypes.  Indices must lie in
-// [0, V); as with any gather, the kernel does not check them.
+// Indices outside [0, V) are taken as the reference takes them: a negative
+// one wraps once (i + V), then each is clamped to [0, V - 1] as it is
+// staged, one integer min and max a lookup.
+//
+// Plain C interface, loaded from Python with ctypes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,7 +90,8 @@ embedding_bag_kernel(const int32_t* __restrict__ indices,
   for (int j0 = 0; j0 < bag; j0 += kIdxChunk) {
     const int n = min(kIdxChunk, bag - j0);
     for (int t = threadIdx.x; t < n; t += blockDim.x) {
-      s_idx[t] = bag_idx[j0 + t];
+      const int32_t i = bag_idx[j0 + t];
+      s_idx[t] = min(max(i < 0 ? i + vocab : i, 0), vocab - 1);
       if constexpr (WEIGHTED) s_w[t] = weights[b * bag + j0 + t];
     }
     __syncthreads();

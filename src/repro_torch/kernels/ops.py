@@ -14,10 +14,11 @@ import torch
 
 from . import decode_attention as _decode
 from . import embedding_bag as _bag
+from . import fcfs_scan as _fcfs
 from . import flash_attention as _flash
 from . import ssd_scan as _ssd
-from .ref import (decode_attention_ref, embedding_bag_ref, flash_attention_ref,
-                  ssd_scan_ref)
+from .ref import (decode_attention_ref, embedding_bag_ref, fcfs_scan_ref,
+                  flash_attention_ref, ssd_scan_ref)
 
 
 def _route(name: str, device: torch.device):
@@ -77,3 +78,23 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if _route("ssd_scan", x.device):
         return _ssd.ssd_scan_cuda(x, dt, a_log, b, c)
     return ssd_scan_ref(x, dt, a_log, b, c)
+
+
+def fcfs_scan(arrivals: torch.Tensor, service: torch.Tensor,
+              type_of_slot: torch.Tensor, priority: torch.Tensor,
+              free0: torch.Tensor, qos_t: float, *, want_lat: bool = False,
+              want_start: bool = False) -> _fcfs.ScanResult:
+    """FCFS dispatch of W query streams over B slot layouts in one call:
+    arrivals (W, nq) f32; service (W or 1, n_types, nq) f32; type_of_slot
+    (B, S) i32; priority (S,) f32; free0 (B, S) f32, the initial next-free
+    time of each slot (a huge value for an absent slot) → counts of queries
+    within ``qos_t`` (W, B) i32, latencies and start times (W, B, nq) f32
+    when asked, and the final next-free times (W, B, S) f32."""
+    _fcfs.check_inputs(arrivals, service, type_of_slot, priority, free0)
+    if _route("fcfs_scan", arrivals.device):
+        return _fcfs.fcfs_scan_cuda(arrivals, service, type_of_slot,
+                                    priority, free0, qos_t,
+                                    want_lat=want_lat, want_start=want_start)
+    return _fcfs.ScanResult(*fcfs_scan_ref(
+        arrivals, service, type_of_slot, priority, free0, qos_t, _fcfs.BIG,
+        want_lat=want_lat, want_start=want_start))

@@ -17,6 +17,8 @@ def embedding_bag_ref(indices: torch.Tensor, table: torch.Tensor,
     (n_bags, T·D), table t pooled by ``indices[:, t]`` (one table is the
     T = 1 case).
 
+    An index outside [0, V) is taken as the reference takes it: a
+    negative one wraps once (i + V), then it is clamped to [0, V - 1].
     Lookups are added in order, j = 0 .. bag-1, from zero, in float32
     (product and sum rounded separately when weighted), and the sum is cast
     to the table's type once.  The JAX reference accumulates in the table's
@@ -28,9 +30,10 @@ def embedding_bag_ref(indices: torch.Tensor, table: torch.Tensor,
         weights = None if weights is None else weights[:, None]
     n_bags, n_tables, bag = indices.shape
     vocab, d = table.shape[1:]
+    idx = indices.long()
+    idx = torch.where(idx < 0, idx + vocab, idx).clamp(0, vocab - 1)
     first = torch.arange(n_tables, device=table.device)[:, None] * vocab
-    rows = table.reshape(-1, d).index_select(
-        0, (indices.long() + first).reshape(-1))
+    rows = table.reshape(-1, d).index_select(0, (idx + first).reshape(-1))
     rows = rows.reshape(n_bags, n_tables, bag, d).float()
     out = torch.zeros(n_bags, n_tables, d, dtype=torch.float32,
                       device=table.device)
@@ -143,3 +146,52 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgt,btkd->bkgd", probs, v)
     return out.reshape(b, 1, h, d)
+
+
+def fcfs_scan_ref(arrivals: torch.Tensor, service: torch.Tensor,
+                  type_of_slot: torch.Tensor, priority: torch.Tensor,
+                  free0: torch.Tensor, qos_t: float, big: float, *,
+                  want_lat: bool = False, want_start: bool = False):
+    """FCFS dispatch of W query streams over B slot layouts: arrivals
+    (W, nq) f32, service (W or 1, n_types, nq) f32, type_of_slot (B, S)
+    i32, priority (S,) f32, free0 (B, S) f32 → (counts (W, B) i32,
+    latencies (W, B, nq) f32 or None, start times (W, B, nq) f32 or None,
+    final next-free times (W, B, S) f32).
+
+    The reference's ``_simulate_scan`` step (and its fused counter
+    ``_grid_lane_qos_counts``) on every lane at once, query by query, in
+    float32: ``key = where(free <= a, priority - big, free)``; the slot is
+    the first minimum of the key; ``start = max(a, free[slot])``;
+    ``finish = start + service[type_of_slot[slot], q]`` (type indices
+    clamped to [0, n_types), as jnp's gather clamps); the slot's carry
+    becomes ``finish``; the latency is ``finish - a`` and it counts when
+    ``<= qos_t``.
+    """
+    n_w, nq = arrivals.shape
+    n_b, n_s = type_of_slot.shape
+    n_types = service.shape[1]
+    free = free0.unsqueeze(0).expand(n_w, n_b, n_s).clone()
+    idle_key = priority - big           # float32: big and qos_t are scalars
+    types = type_of_slot.long().clamp(0, n_types - 1).expand(n_w, n_b, n_s)
+    service = service.expand(n_w, n_types, nq)
+    iota = torch.arange(n_s, device=free.device)
+    counts = torch.zeros((n_w, n_b), dtype=torch.int32, device=free.device)
+    lat = (torch.empty((n_w, n_b, nq), dtype=torch.float32,
+                       device=free.device) if want_lat else None)
+    starts = (torch.empty((n_w, n_b, nq), dtype=torch.float32,
+                          device=free.device) if want_start else None)
+    for q in range(nq):
+        a = arrivals[:, q, None]                                  # (W, 1)
+        key = torch.where(free <= a[..., None], idle_key, free)
+        slot = key.argmin(dim=-1, keepdim=True)                   # (W, B, 1)
+        start = torch.maximum(a, free.gather(-1, slot)[..., 0])   # (W, B)
+        svc = service[:, :, q].gather(1, types.gather(-1, slot)[..., 0])
+        finish = start + svc
+        free = torch.where(iota == slot, finish[..., None], free)
+        q_lat = finish - a
+        counts += (q_lat <= qos_t).to(torch.int32)
+        if want_lat:
+            lat[:, :, q] = q_lat
+        if want_start:
+            starts[:, :, q] = start
+    return counts, lat, starts, free

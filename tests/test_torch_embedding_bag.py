@@ -236,10 +236,71 @@ def test_plain_adds_in_order_from_zero():
         np.testing.assert_array_equal(got.numpy(), acc)
 
 
+def _out_of_range(n_bags, n_tables, bag, v, seed):
+    """Indices drawn from [-2V, 2V) with the int32 extremes, -1 and V among
+    them: below zero, at and above V, and in range."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-2 * v, 2 * v, (n_bags, n_tables, bag)).astype(np.int32)
+    idx[0, :, :4] = [-2 ** 31, 2 ** 31 - 1, -1, v]
+    return idx
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("weighted", [False, True])
+def test_out_of_range_indices_match_reference(weighted, dtype):
+    """An index outside [0, V) as the reference takes it (a negative one
+    wraps once, then all are clamped to [0, V - 1]): the plain version
+    against ``repro.kernels.ref.embedding_bag_ref`` and the Pallas kernel
+    in interpret mode, for one table (bit for bit against the Pallas
+    kernel unweighted in float32) and for stacked tables, per table."""
+    n_tables, v, d = 3, 12, 8
+    idx = _out_of_range(6, n_tables, 5, v, seed=31)
+    rng = np.random.default_rng(32)
+    tables = (rng.standard_normal((n_tables, v, d)) * 0.5).astype(np.float32)
+    w = (rng.uniform(size=idx.shape).astype(np.float32) if weighted
+         else None)
+    jdt, tdt = DTYPES[dtype]
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    per_table = []
+    for t in range(n_tables):
+        ji = jnp.asarray(idx[:, t])
+        jt = jnp.asarray(tables[t]).astype(jdt)
+        jw = None if w is None else jnp.asarray(w[:, t])
+        pallas = _f32(jops.embedding_bag(ji, jt, jw, interpret=True))
+        got = _f32(ops.embedding_bag(
+            torch.from_numpy(idx[:, t].copy()),
+            torch.from_numpy(tables[t]).to(tdt),
+            None if w is None else torch.from_numpy(w[:, t].copy())))
+        if dtype == "float32" and not weighted:
+            np.testing.assert_array_equal(got, pallas)
+        np.testing.assert_allclose(got, pallas, **tol)
+        np.testing.assert_allclose(
+            got, _f32(jref.embedding_bag_ref(ji, jt, jw)), **tol)
+        per_table.append(got)
+    stacked = ops.embedding_bag(torch.from_numpy(idx),
+                                torch.from_numpy(tables).to(tdt),
+                                None if w is None else torch.from_numpy(w))
+    np.testing.assert_array_equal(_f32(stacked),
+                                  np.concatenate(per_table, axis=1))
+
+
+def test_out_of_range_probe_values():
+    """The probe of the fault's report: table ``arange(12).reshape(4, 3)``
+    and indices [[5, -1], [4, 0]] give [[18, 20, 22], [9, 11, 13]], as
+    the reference's oracle and Pallas kernel do."""
+    table = np.arange(12, dtype=np.float32).reshape(4, 3)
+    idx = np.asarray([[5, -1], [4, 0]], dtype=np.int32)
+    got = ops.embedding_bag(torch.from_numpy(idx), torch.from_numpy(table))
+    np.testing.assert_array_equal(got.numpy(), [[18, 20, 22], [9, 11, 13]])
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jref.embedding_bag_ref(jnp.asarray(idx),
+                                                       jnp.asarray(table))))
+
+
 def test_build_targets_hopper_from_repo_sources():
     from repro_torch.kernels import _build
     assert _build.sources() == ["decode_attention", "embedding_bag",
-                                "flash_attention", "ssd_scan"]
+                                "fcfs_scan", "flash_attention", "ssd_scan"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     for name in _build.sources():
         path = _build.library_path(name)

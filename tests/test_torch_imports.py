@@ -46,6 +46,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(modules) >= 15 and set(modules) <= set(loaded)
     assert {"repro_torch.models.ssm", "repro_torch.kernels.ssd_scan"} <= set(modules)
+    assert {"repro_torch.prng", "repro_torch.serving.instance",
+            "repro_torch.serving.simulator", "repro_torch.serving.pool",
+            "repro_torch.core.baselines",
+            "repro_torch.kernels.fcfs_scan"} <= set(modules)
     bad = [m for m in loaded if m == "jax" or m.startswith(("jax.", "jaxlib"))
            or m == "repro" or m.startswith("repro.")]
     assert bad == []
@@ -57,8 +61,13 @@ def _entry_points():
     from repro_torch.core.gp import GaussianProcess
     from repro_torch.models.paper_models import make_random_batch, mtwnd_init
     from repro_torch.models.transformer import get_model, lm_from_numpy
+    from repro_torch.serving import (PoolEvaluator, PoolSimulator,
+                                     make_paper_setup, paper_workload)
     from repro_torch.serving.engine import DEFAULT_CELLS, ClusterEngine
+    from repro_torch.serving.instance import AWS_INSTANCES, MODEL_PROFILES
     space = SearchSpace((2, 2), (1.0, 2.0))
+    pool_args = (MODEL_PROFILES["mtwnd"], [AWS_INSTANCES["g4dn"]],
+                 paper_workload("mtwnd", n_queries=10))
     lm = get_model(get_arch("qwen2.5-3b").reduced())
     ssm_lm = get_model(get_arch("mamba2-130m").reduced())
     hybrid_lm = get_model(get_arch("zamba2-2.7b").reduced())
@@ -76,6 +85,9 @@ def _entry_points():
         "ssm_init_cache": lambda: ssm_lm.init_cache(1, 8),
         "hybrid_init_params": lambda: hybrid_lm.init_params(torch.Generator()),
         "hybrid_init_cache": lambda: hybrid_lm.init_cache(1, 8),
+        "PoolSimulator": lambda: PoolSimulator(*pool_args),
+        "PoolEvaluator": lambda: PoolEvaluator(*pool_args),
+        "make_paper_setup": lambda: make_paper_setup("mtwnd", n_queries=10),
     }
 
 
@@ -85,7 +97,8 @@ def _entry_points():
                                   "lm_init_params", "lm_init_cache",
                                   "lm_from_numpy", "ssm_init_params",
                                   "ssm_init_cache", "hybrid_init_params",
-                                  "hybrid_init_cache"])
+                                  "hybrid_init_cache", "PoolSimulator",
+                                  "PoolEvaluator", "make_paper_setup"])
 def test_entry_point_without_device_raises_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card: the default device is valid")

@@ -4,7 +4,9 @@
 
 Drives the port (``src/repro_torch``) on its main paths: the MT-WND
 serving pool at full width, RIBBON's own search over the FCFS pool
-simulator for the paper's five models, and the serving paths of three LMs
+simulator for the paper's five models, its load-change adaptation (paper
+§5.5) over the simulator's warm, routed and telemetry lanes, and the
+serving paths of three LMs
 at full width and depth (qwen2.5-3b, dense GQA; mamba2-130m, Mamba-2 SSM;
 zamba2-2.7b, Mamba-2 with a shared attention block), in phases that each
 print a line and raise on failure:
@@ -38,7 +40,18 @@ print a line and raise on failure:
    queries, a 3-load-factor x 16-pool grid with one service table and
    with a table per row, pools at max_instances, all-zero pools, bursts
    of simultaneous queries with equal service times (ties), and 8, 64 and
-   130 slots;
+   130 slots; then its routed, warm, traced and telemetry flavours, bit
+   for bit (the dispatch trace and the telemetry counters too): the four
+   named routing policies and a stacked P = 4 policy over 16 mtwnd pools,
+   per-row carries on a 3-row grid (cold and routed), the dispatch trace,
+   the counters with and without a policy, ties with absent slots, an
+   all-zero pool and warm carries, and 130 slots (K = 8) with every flag
+   on, and the identity policy against the cold flavour; and the bf16
+   attention and SSD-scan kernels on inputs they cannot read in place
+   (ROADMAP C-F2: flash and decode attention at D 36 and D 100, ssd_scan
+   at P 50, N 20, and views offset by one element), padded or copied by
+   the wrappers, against the plain versions with the gates above, each
+   timed beside an aligned call of the padded width;
 4. MT-WND full-width forward, kernel path against plain path, per batch
    bucket 1..32, with forward times: eager (CUDA events, median of 30) and
    device-only (replayed from a CUDA graph, so without the host's launch
@@ -53,6 +66,16 @@ print a line and raise on failure:
    (5, 0, 0)) and the exhaustive optimum; each held against the same path
    run on the CPU in this process: the same configs in the same order,
    the same QoS rates bit for bit, the same pools;
+7b. RIBBON's load-change adaptation (paper §5.5) with the simulator on the
+   card, and again on the CPU in this process, every result equal (rates
+   and telemetry bit for bit): ``examples/autoscale_loadchange.py`` (the
+   base-load search, the monitor's detection of the 1.5x load, the
+   incumbent's QoS, the sequential ``rescale(budget=40)``), then the warm
+   anchor under ``policy=None`` and ``"hedged"`` (the base pool's segment
+   with telemetry, its carry after 1000 queries, ``rescale(budget=40,
+   load_factors=[1.0, 1.5], warm_state=..., deployed=base,
+   policy=...)``), the base and new pools' warm telemetry under both loads
+   and ``tail_latency(base, 99)``; the BO's GP on the host in both runs;
 8. LM serving, for each of the three LMs, with random weights from a seed:
    4 requests (2000 prompt tokens, max_len 2048 for qwen2.5-3b; 2048 and
    2096 for the SSM and hybrid LMs, so their plain path runs the
@@ -70,7 +93,10 @@ print a line and raise on failure:
 Launch counts are set to 0 just before phase 5 and read after phase 6
 (every MT-WND forward makes one embedding-bag launch for its 8 tables),
 set to 0 again just before phase 7 and read after it (one fcfs_scan
-launch per simulator dispatch, and no other kernel), and set to 0 again
+launch per simulator dispatch, and no other kernel), again just before
+phase 7b and read after it (one fcfs_scan launch per simulator dispatch,
+each of the cold, policy, telemetry and trace flavours launched, and no
+other kernel), and set to 0 again
 just before each LM's serving runs and read just after
 them (qwen2.5-3b: one flash-attention launch per layer per prefill and one
 decode-attention launch per layer per step; mamba2-130m: one SSD-scan
@@ -83,7 +109,8 @@ launches, error against its plain version and times at its path's shape
 (for the attention and SSD-scan kernels also launches by type): kernel,
 plain version and library call device-only (CUDA graph) and eager, and the
 bound (bytes over the card's memory rate or operations over its rate for
-their type, bf16 tensor or fp32, whichever is larger).  The last line is
+their type, bf16 tensor or fp32, whichever is larger); for fcfs_scan also
+each flavour's times, bound and launches on the load-change path.  The last line is
 ``{"ok": true, "device": {...}}``.  Float32 matrix products and
 convolutions run in full float32 (TF32 off), as the JAX reference
 computes.  Exits non-zero, with no result line, without a card or outside
@@ -114,7 +141,8 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda  # noqa: E402
 from repro_torch.kernels.fcfs_scan import BIG as FCFS_BIG  # noqa: E402
-from repro_torch.kernels.fcfs_scan import fcfs_scan_cuda  # noqa: E402
+from repro_torch.kernels.fcfs_scan import (FLAVOURS,  # noqa: E402
+                                           fcfs_scan_cuda, tel_width)
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
                                      embedding_bag_ref, fcfs_scan_ref,
@@ -132,10 +160,15 @@ from repro_torch.serving.engine import DEFAULT_CELLS, ClusterEngine  # noqa: E40
 from repro_torch.serving.instance import (AWS_INSTANCES,  # noqa: E402
                                           MODEL_PROFILES, PAPER_POOLS,
                                           service_table_for)
-from repro_torch.serving.pool import (best_homogeneous,  # noqa: E402
-                                      make_paper_setup, paper_workload)
+from repro_torch.serving.autoscaler import LoadMonitor, rescale  # noqa: E402
+from repro_torch.serving.pool import (PoolEvaluator,  # noqa: E402
+                                      best_homogeneous, make_paper_setup,
+                                      paper_workload)
+from repro_torch.serving.routing import (NAMED_POLICIES,  # noqa: E402
+                                         RoutingPolicy, named_policy)
 from repro_torch.serving.simulator import (_cold_free0,  # noqa: E402
-                                           _expand_slots, _qos_threshold_f32)
+                                           _expand_slots, _fold_policy,
+                                           _qos_threshold_f32)
 from repro_torch.models.transformer import get_model  # noqa: E402
 from repro_torch.serving.workload import WorkloadSpec  # noqa: E402
 
@@ -661,9 +694,108 @@ def _fcfs_cases():
     ]
 
 
+def _policy_ops(policy: RoutingPolicy, tos: torch.Tensor):
+    """A policy folded over the slot layouts ``tos`` (L, S) as the
+    simulator folds it: (type_of_slot, pref_slot, affinity, hedge) on the
+    card, P·L lanes for a stacked policy."""
+    host = tos.cpu().numpy()
+    tos2, _, pref, aff, hed, _ = _fold_policy(policy, host,
+                                              np.zeros(host.shape, np.float32))
+
+    def dev(x, dtype=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).cuda()
+
+    return dev(tos2, np.int32), (dev(pref), dev(aff), dev(hed))
+
+
+def _warm_carries(tos, rows: int, seed: int):
+    """Per-row warm carries for ``tos`` (L, S): each active slot busy until
+    a draw from [0, 0.02) s or idle, absent slots 1e30, (rows, L, S)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    busy = torch.rand((rows, *tos.shape), generator=gen, device="cuda")
+    free = torch.where(busy < 0.5, busy * 0.04, torch.zeros_like(busy))
+    return free
+
+
+def _fcfs_flavour_cases():
+    """(label, operands, flags) of the routed, warm, traced and telemetry
+    flavours: the four named policies and a stacked P = 4 policy over 16
+    mtwnd pools, per-row carries on a 3-row grid, the dispatch trace, the
+    telemetry counters with and without a policy, and ties, absent slots,
+    all-zero pools and 130 slots (K = 8) with every flag on."""
+    rng = np.random.default_rng(9)
+    pools = _configs(rng, (8, 10, 12), 16)
+    pools[0] = 0
+    ops16 = _fcfs_inputs("mtwnd", pools, 40)
+    prices = tuple(AWS_INSTANCES[n].price
+                   for n in PAPER_POOLS["mtwnd"]["diverse"])
+    cases = []
+    for name in NAMED_POLICIES:
+        tos, pol = _policy_ops(named_policy(name, prices), ops16[2])
+        cases.append((f"policy {name}, 16 pools", (*ops16[:2], tos,
+                                                    *ops16[3:]),
+                      dict(policy=pol)))
+    mixed = RoutingPolicy.from_order([2, 0, 1], affinity=40.0, hedge=0.5)
+    stacked = RoutingPolicy.stack(
+        [named_policy(n, prices) for n in NAMED_POLICIES[1:]] + [mixed])
+    tos, pol = _policy_ops(stacked, ops16[2])
+    free0 = ops16[4].repeat(4, 1)
+    cases.append(("stacked P 4 x 16 pools", (*ops16[:2], tos, ops16[3], free0,
+                                             ops16[5]), dict(policy=pol)))
+    grid = _fcfs_inputs("mtwnd", pools, 40, factors=(0.8, 1.0, 1.3))
+    absent = grid[4] > 1e29
+    carries = torch.where(absent, grid[4],
+                          _warm_carries(grid[2], 3, 4))       # (3, L, S)
+    cases.append(("per-row carries, 3-row grid", (*grid[:4], carries,
+                                                   grid[5]), {}))
+    tos, pol = _policy_ops(mixed, grid[2])
+    cases.append(("per-row carries, 3-row grid, routed",
+                  (*grid[:2], tos, grid[3], carries, grid[5]),
+                  dict(policy=pol)))
+    n_active = torch.from_numpy(pools.sum(axis=1).astype(np.int32)).cuda()
+    cases.append(("dispatch trace", ops16, dict(want_slot=True)))
+    cases.append(("telemetry", grid, dict(n_active=n_active)))
+    tos, pol = _policy_ops(named_policy("hedged", prices), ops16[2])
+    cases.append(("telemetry, hedged", (*ops16[:2], tos, *ops16[3:]),
+                  dict(policy=pol, n_active=n_active)))
+    ties_pools = np.asarray([(8, 10, 12), (20, 0, 0), (1, 1, 1), (0, 0, 0),
+                             (2, 0, 3)])
+    ties = _fcfs_inputs("mtwnd", ties_pools, 40)
+    ties = (torch.floor(torch.arange(1500, device="cuda") / 50)[None]
+            .float() * 0.002, torch.full_like(ties[1], 0.005), *ties[2:])
+    warm = torch.where(ties[4] > 1e29, ties[4],
+                       _warm_carries(ties[2], 1, 5)[0] * 0.1)
+    tos, pol = _policy_ops(mixed, ties[2])
+    cases.append(("ties, absent slots, all-zero pool, warm, every flag",
+                  (*ties[:2], tos, ties[3], warm, ties[5]),
+                  dict(policy=pol, want_slot=True, n_active=torch.from_numpy(
+                      ties_pools.sum(axis=1).astype(np.int32)).cuda())))
+    wide_pools = _configs(rng, (40, 40, 50), 16)
+    wide = _fcfs_inputs("resnet50", wide_pools, 130)
+    tos, pol = _policy_ops(named_policy("affinity", prices), wide[2])
+    cases.append(("S 130 (K 8), every flag", (*wide[:2], tos, *wide[3:]),
+                  dict(policy=pol, want_slot=True, n_active=torch.from_numpy(
+                      wide_pools.sum(axis=1).astype(np.int32)).cuda())))
+    identity = _policy_ops(RoutingPolicy.fcfs(3), ops16[2])[1]
+    return cases, (ops16, identity)
+
+
+def _fcfs_check(label: str, got, want) -> None:
+    for part, g, w in zip(("counts", "latencies", "start times",
+                           "final carries", "dispatch trace",
+                           "telemetry counters"), got, want):
+        if (g is None) != (w is None) or (
+                g is not None and (g.shape != w.shape
+                                   or not torch.equal(g, w))):
+            raise AssertionError(f"fcfs_scan {label}: {part} differ from "
+                                 "the plain version (gate: bit for bit)")
+
+
 def simulator_phase() -> int:
     """fcfs_scan against its plain version on the card, bit for bit:
-    QoS counts, latencies, start times and final carries.  Returns the
+    QoS counts, latencies, start times, final carries, and in the routed,
+    warm, traced and telemetry flavours the dispatch trace and the
+    counters; the identity policy against the cold flavour.  Returns the
     number of lanes checked."""
     lanes = 0
     cases = _fcfs_cases()
@@ -673,17 +805,139 @@ def simulator_phase() -> int:
         want = fcfs_scan_ref(arr, svc, tos, prio, free0, qos_t, FCFS_BIG,
                              want_lat=True, want_start=True)
         torch.cuda.synchronize()
-        for part, g, w in zip(("counts", "latencies", "start times",
-                               "final carries"), got, want):
-            if g.shape != w.shape or not torch.equal(g, w):
-                raise AssertionError(f"fcfs_scan {label}: {part} differ from "
-                                     "the plain version (gate: bit for bit)")
+        _fcfs_check(label, got, want)
         lanes += got.counts.numel()
-    phase("kernel", f"fcfs_scan vs plain: {len(cases)} cases "
+    phase("kernel", f"fcfs_scan vs plain, cold: {len(cases)} cases "
                     f"({'; '.join(c[0] for c in cases)}), {lanes} lanes: "
                     "counts, latencies, start times and final carries equal "
                     "bit for bit")
-    return lanes
+    flavoured, (ops16, identity) = _fcfs_flavour_cases()
+    before = dict(fcfs_scan_cuda.launches_by_flavour)
+    n = 0
+    for label, (arr, svc, tos, prio, free0, qos_t), kw in flavoured:
+        got = ops.fcfs_scan(arr, svc, tos, prio, free0, qos_t, want_lat=True,
+                            want_start=True, **kw)
+        want = fcfs_scan_ref(arr, svc, tos, prio, free0, qos_t, FCFS_BIG,
+                             want_lat=True, want_start=True, **kw)
+        torch.cuda.synchronize()
+        _fcfs_check(label, got, want)
+        if "n_active" in kw and got.tel.shape[-1] != tel_width(svc.shape[1]):
+            raise AssertionError(f"fcfs_scan {label}: telemetry width")
+        n += got.counts.numel()
+    arr, svc, tos, prio, free0, qos_t = ops16
+    routed = ops.fcfs_scan(arr, svc, tos, prio, free0, qos_t, want_lat=True,
+                           want_start=True, want_slot=True, policy=identity)
+    cold = ops.fcfs_scan(arr, svc, tos, prio, free0, qos_t, want_lat=True,
+                         want_start=True, want_slot=True)
+    torch.cuda.synchronize()
+    _fcfs_check("identity policy vs the cold flavour", routed, cold)
+    ran = {f: fcfs_scan_cuda.launches_by_flavour[f] - before[f]
+           for f in FLAVOURS}
+    if not all(ran.values()):
+        raise AssertionError(f"fcfs_scan flavour cases missed a flavour: "
+                             f"{ran}")
+    phase("kernel", f"fcfs_scan vs plain, flavoured: {len(flavoured)} cases "
+                    f"({'; '.join(c[0] for c in flavoured)}), {n} lanes, "
+                    f"launches by flavour {ran}: counts, latencies, start "
+                    "times, carries, traces and telemetry counters equal bit "
+                    "for bit; the identity policy equals the cold flavour bit "
+                    "for bit")
+    return lanes + n
+
+
+# C-F2: bf16 inputs the tensor-core kernels cannot read in place, padded or
+# copied by the wrappers.  (label, kind, operands' shape)
+CF2_CASES = [("flash D 36", "flash", (2, 300, 8, 2, 36)),
+             ("flash D 100", "flash", (2, 257, 4, 4, 100)),
+             ("decode D 36", "decode", (4, 1000, 2, 8, 36)),
+             ("decode D 100", "decode", (2, 777, 4, 1, 100)),
+             ("flash, k offset by one element", "flash", (2, 300, 8, 2, 64)),
+             ("decode, k and pos offset by one element", "decode",
+              (4, 1000, 2, 8, 64)),
+             ("ssd_scan P 50, N 20", "ssd", (2, 300, 8, 50, 1, 20)),
+             ("ssd_scan, x offset by one element", "ssd",
+              (2, 300, 8, 64, 1, 64))]
+
+
+def _offset_by_one(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` whose base lies one element past an aligned one."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def cf2_phase() -> dict:
+    """ROADMAP C-F2 on the card: bf16 inputs with a head dim, P or N that
+    is not a multiple of 8, or a view whose base is not 16-byte aligned,
+    through the bf16 kernels (the wrappers pad or copy them) against the
+    plain versions, with the attention and SSD gates.  Times each case
+    device-only beside the same call on an aligned input of the padded
+    width, the cost of the padding or copy.  Returns {label: (ms, aligned
+    ms)}."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    bf16 = torch.bfloat16
+    times = {}
+    before = {f.__name__: f.launches_by_dtype["bfloat16"]
+              for f in (flash_attention_cuda, decode_attention_cuda,
+                        ssd_scan_cuda)}
+    for label, kind, shape in CF2_CASES:
+        offset = "offset" in label
+        if kind == "flash":
+            b, s, h, kh, d = shape
+            q, k, v = (_normal(gen, sh, bf16) for sh in
+                       ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+            if offset:
+                k = _offset_by_one(k)
+            _gate(f"C-F2 {label}", ops.flash_attention(q, k, v),
+                  flash_attention_ref(q, k, v),
+                  flash_attention_ref(q.float(), k.float(), v.float()))
+            aligned = [torch.zeros((*x.shape[:-1], -(-d // 8) * 8),
+                                   dtype=bf16, device="cuda")
+                       for x in (q, k, v)]
+            fns = (lambda: ops.flash_attention(q, k, v),
+                   lambda: ops.flash_attention(*aligned))
+        elif kind == "decode":
+            b, t, kh, g, d = shape
+            q, k, v = (_normal(gen, sh, bf16) for sh in
+                       ((b, 1, kh * g, d), (b, t, kh, d), (b, t, kh, d)))
+            pos = torch.arange(t, device="cuda", dtype=torch.int32)
+            pos[-9:] = -1
+            if offset:
+                k, pos = _offset_by_one(k), _offset_by_one(pos)
+            _gate(f"C-F2 {label}", ops.decode_attention(q, k, v, pos),
+                  decode_attention_ref(q, k, v, pos),
+                  decode_attention_ref(q.float(), k.float(), v.float(), pos))
+            aligned = [torch.zeros((*x.shape[:-1], -(-d // 8) * 8),
+                                   dtype=bf16, device="cuda")
+                       for x in (q, k, v)]
+            pos0 = torch.arange(t, device="cuda", dtype=torch.int32)
+            fns = (lambda: ops.decode_attention(q, k, v, pos),
+                   lambda: ops.decode_attention(*aligned, pos0))
+        else:
+            b, l, h, p, g, n = shape
+            x, dt, a_log, bm, cm = _ssd_inputs(
+                gen, (label, b, l, h, p, g, n, False), bf16)
+            if offset:
+                x = _offset_by_one(x)
+            _ssd_gate(f"C-F2 {label}", (x, dt, a_log, bm, cm))
+            xa = torch.zeros((b, l, h, -(-p // 8) * 8), dtype=bf16,
+                             device="cuda")
+            ba = torch.zeros((b, l, g, -(-n // 8) * 8), dtype=bf16,
+                             device="cuda")
+            fns = (lambda: ops.ssd_scan(x, dt, a_log, bm, cm),
+                   lambda: ops.ssd_scan(xa, dt, a_log, ba, ba))
+        times[label] = tuple(graph_ms(fn, 5, 5) for fn in fns)
+    ran = {name: f.launches_by_dtype["bfloat16"] - before[name]
+           for name, f in (("flash_attention_cuda", flash_attention_cuda),
+                           ("decode_attention_cuda", decode_attention_cuda),
+                           ("ssd_scan_cuda", ssd_scan_cuda))}
+    phase("kernel", "C-F2 on the bf16 kernels: " + "; ".join(
+        f"{label} {ms:.5f} ms device-only (aligned input of the padded width "
+        f"{al:.5f} ms)" for label, (ms, al) in times.items())
+          + f"; every case within its kernel's gates against the plain "
+            f"version; bf16 launches {ran}")
+    return times
 
 
 def forward_phase() -> None:
@@ -820,6 +1074,111 @@ def search_path() -> int:
                               f"s (host clock, set-up included); the same "
                               "results on both")
     return dispatches
+
+
+def _converge(opt: RibbonOptimizer, ev) -> RibbonOptimizer:
+    """The example's base-load search: ask/tell until done."""
+    while not opt.done:
+        cfg = opt.ask()
+        if cfg is None:
+            break
+        opt.tell(cfg, ev(cfg))
+    return opt
+
+
+def _tel_fields(tel) -> tuple:
+    return tuple(np.asarray(getattr(tel, f)).tolist() for f in (
+        "served", "miss", "busy_ms", "lat_hist", "wait_hist", "depth_sum",
+        "depth_peak"))
+
+
+def _load_change(device: str) -> dict:
+    """RIBBON's load-change adaptation (paper §5.5) with the simulator on
+    ``device``: ``examples/autoscale_loadchange.py`` (converge on mtwnd's
+    base load from (5, 0, 0), detect the 1.5x load with the monitor,
+    re-measure the incumbent, the sequential ``rescale(budget=40)``), then
+    the warm anchor under ``policy=None`` and ``"hedged"`` (the base pool's
+    segment with telemetry, its carry after 1000 queries rebased to the
+    1000th arrival, ``rescale(budget=40, load_factors=[1.0, 1.5],
+    warm_state=..., deployed=base, policy=...)``), the base and new pools'
+    warm telemetry under both loads, and ``tail_latency(base, 99)``.  The
+    BO's GP runs on the host in both runs (its card-vs-host agreement is
+    phase 6's), so the two runs differ only in where the simulator runs."""
+    t0 = time.perf_counter()
+    ev, space, profile = make_paper_setup("mtwnd", device=device)
+
+    def optimizer():
+        return _converge(RibbonOptimizer(space, qos_target=0.99,
+                                         start=(5, 0, 0), device="cpu"), ev)
+
+    opt = optimizer()
+    base = opt.trace.best_feasible()
+    out = {"base": (base.config, base.cost, base.qos_rate,
+                    opt.trace.n_samples)}
+    hot = PoolEvaluator(profile, ev.types, ev.workload.scaled(1.5),
+                        device=device)
+    monitor = LoadMonitor(qos_target=0.99)
+    lat0 = ev.sim.simulate(base.config).lat
+    monitor.observe(lat0, np.zeros_like(lat0), profile.qos_latency)
+    lat1 = hot.sim.simulate(base.config).lat
+    detected = monitor.observe(lat1, np.maximum(lat1 - lat0, 0),
+                               profile.qos_latency)
+    event = rescale(opt, hot, budget=40)
+    out["example"] = (detected, hot(base.config), vars(event))
+    for name in (None, "hedged"):
+        pol = None if name is None else named_policy(name, space.prices)
+        opt = optimizer()
+        seg = ev.sim.segment_from(ev.sim.initial_state(), base.config,
+                                  policy=pol, telemetry=True)
+        st = seg.state_at(1000).rebased(float(ev.workload.arrivals[1000]))
+        event = rescale(opt, ev, budget=40, load_factors=[1.0, 1.5],
+                        warm_state=st, deployed=base.config, policy=pol)
+        pools = [base.config] + ([event.new_best] if event.new_best else [])
+        view = ev.sim.qos(pools, workloads=[1.0, 1.5], state=st,
+                          deployed=base.config, policy=pol, telemetry=True)
+        out[name] = (vars(event), _tel_fields(seg.telemetry),
+                     seg.telemetry.latency_percentile(99),
+                     ev.sim.tail_latency(base.config, 99, policy=pol),
+                     view.rates.tolist(), _tel_fields(view.telemetry))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["dispatches"] = ev.sim.n_dispatches + hot.sim.n_dispatches
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def load_change_path() -> int:
+    """Paper §5.5 on the card, held against the same path on the CPU in
+    this process: every result equal, rates bit for bit.  Returns the
+    simulator dispatches made on the card."""
+    card, cpu = _load_change("cuda"), _load_change("cpu")
+    for key in ("base", "example", None, "hedged"):
+        if card[key] != cpu[key]:
+            raise AssertionError(f"load change {key}: card {card[key]} != "
+                                 f"CPU {cpu[key]}")
+    (cfg, cost, rate, n), (detected, incumbent, seq) = (card["base"],
+                                                        card["example"])
+    if not detected or seq["new_best"] is None:
+        raise AssertionError(f"load change: detected {detected}, sequential "
+                             f"rescale {seq}")
+    phase("load", f"base load: {cfg} at ${cost:.3f}/h, QoS {rate}, after "
+                  f"{n} samples; 1.5x load detected by the monitor "
+                  f"({detected}), the incumbent's QoS under it {incumbent:.3f};"
+                  f" sequential rescale(budget=40): {seq['new_best']} at "
+                  f"${seq['new_cost']:.3f}/h in {seq['samples_used']} samples")
+    for name in (None, "hedged"):
+        e, _, p99, tail, rates, _ = card[name]
+        phase("load", f"warm anchor, policy {name}: {e['new_best']} at "
+                      f"${e['new_cost']}/h in {e['samples_used']} samples, "
+                      f"qos_by_load {e['qos_by_load']}; segment telemetry "
+                      f"p99 {p99} s, tail_latency(base, 99) {tail} s; base "
+                      f"and new pools warm under loads 1.0 and 1.5: QoS "
+                      f"{rates}")
+    phase("load", f"card {card['s']:.2f} s, CPU {cpu['s']:.2f} s (host clock, "
+                  f"set-up and the host's GP included), {card['dispatches']} "
+                  "simulator dispatches each; every result equal, rates and "
+                  "telemetry bit for bit")
+    return card["dispatches"]
 
 
 def _greedy(logits):
@@ -1316,33 +1675,76 @@ def ssd_line(launches: int, by_path: dict, by_dtype: dict,
                 "eager_plain_ms", "flops", "bytes")}}
 
 
-def fcfs_line(launches: int, lanes: int) -> dict:
+def _fcfs_flavour_times(arr, svc, tos, prio, free0, qos_t) -> dict:
+    """Each flavour of fcfs_scan at the batch lane's shape, kernel and plain
+    version, device-only (CUDA graph) and eager, with its bound: cold
+    (latencies written, the batch lane), policy (from_order with affinity
+    40 and hedge 0.5, latencies written), telemetry (the counters, no
+    latencies: the grid lane's qos with telemetry) and trace (latencies,
+    start times and winning slots: segment_from's call)."""
+    n_w, nq = arr.shape
+    n_b, n_s = tos.shape
+    n_types = svc.shape[1]
+    mixed = RoutingPolicy.from_order([2, 0, 1], affinity=40.0, hedge=0.5)
+    tos_p, pol = _policy_ops(mixed, tos)
+    n_active = (free0 < 1e29).sum(dim=1).to(torch.int32)
+    lane_q = n_w * n_b * nq
+    flavours = {
+        # kw, extra bytes beyond the cold inputs and counts, ops per slot
+        # and per query-lane beyond them
+        "cold": (dict(want_lat=True), 4 * lane_q, 3 * n_s + 3),
+        "policy": (dict(want_lat=True, policy=pol),
+                   4 * lane_q + 4 * n_b * (n_s + 2), 7 * n_s + 3),
+        "telemetry": (dict(n_active=n_active),
+                      4 * n_b + 4 * n_w * n_b * tel_width(n_types),
+                      4 * n_s + 2 * 31 + 9),
+        "trace": (dict(want_lat=True, want_start=True, want_slot=True),
+                  12 * lane_q, 3 * n_s + 3)}
+    base_bytes = 4 * (arr.numel() + svc.numel() + tos.numel() + prio.numel()
+                      + free0.numel() + n_w * n_b * (1 + n_s))
+    out = {}
+    for name, (kw, extra, per_step) in flavours.items():
+        t = tos_p if "policy" in kw else tos
+
+        def kernel(kw=kw, t=t):
+            return ops.fcfs_scan(arr, svc, t, prio, free0, qos_t, **kw)
+
+        def plain(kw=kw, t=t):
+            return fcfs_scan_ref(arr, svc, t, prio, free0, qos_t, FCFS_BIG,
+                                 **kw)
+
+        _fcfs_check(f"{name} timing case", kernel(), plain())
+        nbytes, n_ops = base_bytes + extra, lane_q * per_step
+        by_ops, by_bytes = n_ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        out[name] = {"ms": graph_ms(kernel, 20, 5),
+                     "eager_ms": event_ms(kernel, 50),
+                     "plain_ms": graph_ms(plain, 1, 2),
+                     "eager_plain_ms": event_ms(plain, 2),
+                     "bound_ms": max(by_ops, by_bytes) * 1e3,
+                     "bound_by": "operations" if by_ops >= by_bytes
+                     else "bytes", "ops": n_ops, "bytes": nbytes}
+    return out
+
+
+def fcfs_line(launches: int, lanes: int, by_path: dict,
+              by_flavour: dict) -> dict:
     """fcfs_scan at the search path's batch shape: 64 mtwnd configs x 1500
     queries, S 40, latencies written (the batch lane), and without them
-    (the grid lane's counts).  Also one batch-lane dispatch of the
-    simulator end to end (host clock: slot layouts up, the kernel,
-    latencies down, the host's mean) on the card and on the CPU.  No single
-    PyTorch call computes the scan: library null."""
+    (the grid lane's counts); each flavour's times and bound there
+    (``_fcfs_flavour_times``) beside its launches on the load-change path.
+    Also one batch-lane dispatch of the simulator end to end (host clock:
+    slot layouts up, the kernel, latencies down, the host's mean) on the
+    card and on the CPU.  No single PyTorch call computes the scan:
+    library null."""
     _, (arr, svc, tos, prio, free0, qos_t) = _fcfs_cases()[0]
     n_w, nq = arr.shape
     n_b, n_s = tos.shape
-
-    def kernel(want_lat=True):
-        return ops.fcfs_scan(arr, svc, tos, prio, free0, qos_t,
-                             want_lat=want_lat)
-
-    def plain():
-        return fcfs_scan_ref(arr, svc, tos, prio, free0, qos_t, FCFS_BIG,
-                             want_lat=True)
-
-    got, want = kernel(), plain()
-    for g, w in zip(got, want):
-        if (g is None) != (w is None) or (g is not None
-                                          and not torch.equal(g, w)):
-            raise AssertionError("fcfs_scan line: kernel differs from plain")
-    times = {"ms": (graph_ms(kernel, 20, 5), event_ms(kernel, 50)),
-             "plain_ms": (graph_ms(plain, 1, 2), event_ms(plain, 2))}
-    counts_ms = graph_ms(lambda: kernel(False), 20, 5)
+    flavours = _fcfs_flavour_times(arr, svc, tos, prio, free0, qos_t)
+    for name, n in by_flavour.items():
+        flavours[name]["launches_load_change_path"] = n
+    cold = flavours["cold"]
+    counts_ms = graph_ms(lambda: ops.fcfs_scan(arr, svc, tos, prio, free0,
+                                               qos_t), 20, 5)
     cfgs = _configs(np.random.default_rng(8), (8, 10, 12), 64)
     host = {}
     for device, runs in (("cuda", 20), ("cpu", 3)):
@@ -1354,35 +1756,33 @@ def fcfs_line(launches: int, lanes: int) -> dict:
             sim.qos(cfgs)
             spans.append(time.perf_counter() - t0)
         host[device] = float(np.median(spans)) * 1e3
-    # each input read once, each output written once
-    nbytes = 4 * (arr.numel() + svc.numel() + tos.numel() + prio.numel()
-                  + free0.numel() + n_w * n_b * (1 + nq + n_s))
-    # per lane and query: S idle tests, S key selects, S - 1 argmin
-    # compares, then max, add, subtract and the QoS compare
-    n_ops = n_w * n_b * nq * (3 * n_s + 3)
-    by_ops, by_bytes = n_ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-    ms = times["ms"][0]
+    ms = cold["ms"]
     return {"name": "fcfs_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/fcfs_scan.cu",
             "replaces": "src/repro/serving/simulator.py:313",
             "replaces_note": "no Pallas kernel: XLA lax.scan (_simulate_scan "
-                             ":313, _grid_lane_qos_counts :395)",
+                             ":313, _grid_lane_qos_counts :395, "
+                             "_simulate_scan_policy :572, "
+                             "_grid_lane_qos_counts_tel :503)",
             "design": "a warp per lane (workload row, pool), the slots' "
                       "carry in registers, a 5-round shuffle argmin on "
                       "(key, slot) per query, arrivals and service tiles "
-                      "in shared memory",
-            "launches": launches, "max_abs_err": 0.0, "lanes_checked": lanes,
-            "ms": ms, "plain_ms": times["plain_ms"][0],
-            "bound_ms": max(by_ops, by_bytes) * 1e3,
-            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+                      "in shared memory; policy, telemetry and trace as "
+                      "template flavours",
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": 0.0, "lanes_checked": lanes,
+            "ms": ms, "plain_ms": cold["plain_ms"],
+            "bound_ms": cold["bound_ms"], "bound_by": cold["bound_by"],
             "library_ms": None,
-            "eager_ms": times["ms"][1], "eager_plain_ms": times["plain_ms"][1],
+            "eager_ms": cold["eager_ms"],
+            "eager_plain_ms": cold["eager_plain_ms"],
             "eager_library_ms": None,
             "counts_only_ms": counts_ms, "ns_per_query": ms * 1e6 / nq,
             "lanes_per_s": n_w * n_b / ms * 1e3,
-            "plain_lanes_per_s": n_w * n_b / times["plain_ms"][0] * 1e3,
+            "plain_lanes_per_s": n_w * n_b / cold["plain_ms"] * 1e3,
             "dispatch_host_ms": host["cuda"], "dispatch_host_ms_cpu":
-            host["cpu"], "ops": n_ops, "bytes": nbytes,
+            host["cpu"], "ops": cold["ops"], "bytes": cold["bytes"],
+            "flavours": flavours,
             "shape": f"W {n_w}, B {n_b}, nq {nq}, S {n_s}, 3 types, "
                      "latencies written"}
 
@@ -1394,8 +1794,9 @@ COUNTED = (embedding_bag_cuda, flash_attention_cuda, decode_attention_cuda,
 def reset_counts() -> None:
     for fn in COUNTED:
         fn.launches = 0
-        for dtype in getattr(fn, "launches_by_dtype", {}):
-            fn.launches_by_dtype[dtype] = 0
+        for by in ("launches_by_dtype", "launches_by_flavour"):
+            for key in getattr(fn, by, {}):
+                getattr(fn, by)[key] = 0
 
 
 def _ms(x) -> str:
@@ -1408,6 +1809,7 @@ def main() -> int:
     worst = kernel_phase()
     attn_worst = attention_phase()
     ssd_worst = ssd_phase()
+    cf2_phase()
     fcfs_lanes = simulator_phase()
     forward_phase()
 
@@ -1444,6 +1846,24 @@ def main() -> int:
                       f"path = 1 x {dispatches} simulator dispatches; no "
                       "other kernel")
 
+    # Main path 2b: RIBBON's load-change adaptation over the simulator.
+    reset_counts()
+    lc_dispatches = load_change_path()
+    counts = {fn.__name__[:-5]: fn.launches for fn in COUNTED}
+    lc_launches = counts.pop("fcfs_scan")
+    by_flavour = dict(fcfs_scan_cuda.launches_by_flavour)
+    if lc_launches == 0 or lc_launches != lc_dispatches or any(
+            counts.values()) or by_flavour["cold"] == 0 or any(
+            by_flavour[f] == 0 for f in ("policy", "telemetry", "trace")):
+        raise AssertionError(f"load-change path: fcfs_scan launched "
+                             f"{lc_launches} times ({by_flavour}) for "
+                             f"{lc_dispatches} simulator dispatches; others "
+                             f"{counts}")
+    phase("launches", f"fcfs_scan: {lc_launches} launches on the load-change "
+                      f"path = 1 x {lc_dispatches} simulator dispatches, by "
+                      f"flavour {by_flavour} (a launch counts once per "
+                      "flavour it has; cold = none); no other kernel")
+
     # Main paths 3-5: the LMs' serving paths at full width and depth.
     by_path, by_dtype = {}, {}
     for run in LM_RUNS:
@@ -1466,7 +1886,9 @@ def main() -> int:
                          attn_worst["decode_attention"]),
              ssd_line(*launches("ssd_scan"), by_dtype["ssd_scan"],
                       ssd_worst),
-             fcfs_line(scan_launches, fcfs_lanes)]
+             fcfs_line(scan_launches + lc_launches, fcfs_lanes,
+                       {"search": scan_launches,
+                        "load_change": lc_launches}, by_flavour)]
     for line in lines:
         phase("kernel", f"{line['name']} at its path's shape, device-only "
                         f"(CUDA graph): kernel {_ms(line['ms'])}, plain "

@@ -17,9 +17,10 @@ The route is chosen by dtype, up front:
   G = 1; P is rounded to bf16 before P·V as the TPU kernel does.  The last
   block of each (batch, KV head) to finish combines the splits, found by an
   atomic counter in a buffer zeroed once per device (``_counters``), so the
-  call needs no host sync and can be captured in a CUDA graph.  It takes
-  D % 8 == 0 and 16-byte aligned bases and strides
-  (``check_tensor_core_inputs`` raises on anything else).
+  call needs no host sync and can be captured in a CUDA graph.  It reads
+  D % 8 == 0 and 16-byte aligned bases and strides: the wrapper zero-pads
+  q, k and v along D and copies a misaligned view
+  (``flash_attention.tensor_core_view``), then slices the output back.
 * float32 goes to ``decode_attention_f32``: fp32 FMAs, a split pass and a
   combine kernel.
 
@@ -37,7 +38,9 @@ import ctypes
 import torch
 
 from . import _build
-from .flash_attention import DTYPE_CODE, MAX_HEAD_DIM, check_tensor_core_inputs
+from .flash_attention import (DTYPE_CODE, MAX_HEAD_DIM,
+                              check_tensor_core_inputs, padded,
+                              tensor_core_view)
 
 MAX_GROUP = 32
 TILE = 64            # keys per tile; a split covers a multiple of it
@@ -131,11 +134,19 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           pos: torch.Tensor, *, scale: float) -> torch.Tensor:
     """Launch the CUDA kernel(s) of q's type on the current stream (inputs
     already checked by ``check_inputs``, on a CUDA device).  Returns a new
-    contiguous (B, 1, H, D) tensor.  Raises if the launch fails, or if a
-    bf16 input does not suit the tensor-core kernel."""
+    contiguous (B, 1, H, D) tensor.  A bf16 call with D not a multiple of 8
+    runs on q, k and v zero-padded to the next one, a misaligned bf16 view
+    (or pos) on a fresh copy (``tensor_core_view``).  Raises if the launch
+    fails."""
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_cuda needs CUDA tensors, got {q.device}")
     b, _, h, d = q.shape
+    if q.dtype == torch.bfloat16:
+        q, k, v = (tensor_core_view(t, padded(d)) for t in (q, k, v))
+        pos = tensor_core_view(pos)
+        if q.shape[-1] != d:
+            return decode_attention_cuda(q, k, v, pos,
+                                         scale=scale)[..., :d].contiguous()
     _, t, kh, _ = k.shape
     if b * kh > 65535:
         raise ValueError(f"decode_attention_cuda: B·KH {b * kh} > 65535")

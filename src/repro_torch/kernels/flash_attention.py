@@ -14,8 +14,11 @@ The route is chosen by dtype, up front:
 * bfloat16 (the serving type) goes to ``flash_attention_bf16``, the
   tensor-core kernel: mma.sync.m16n8k16 products, K/V tiles by cp.async
   into a 2-stage ring, P rounded to bf16 before P·V as the TPU kernel does.
-  It takes D % 8 == 0 and 16-byte aligned bases and strides;
-  ``check_tensor_core_inputs`` raises on anything else before the launch.
+  It reads D % 8 == 0 and 16-byte aligned bases and strides: the wrapper
+  zero-pads q, k and v along D to the next multiple of 8 (the padded
+  products are exact zeros; the scale stays the original D's) and slices
+  the output back, and copies a misaligned view into a fresh allocation
+  (``tensor_core_view``), so it takes every input the reference takes.
 * float32 goes to ``flash_attention_f32``, fp32 FMAs, so fp32 results stay
   within 1e-4 of the plain version (the tensor cores' TF32 would not).
 
@@ -82,13 +85,38 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: sizes must fit in int32")
 
 
+def tensor_core_view(t: torch.Tensor, width: int | None = None) -> torch.Tensor:
+    """``t`` as the bf16 tensor-core kernels read it: ``t`` itself when its
+    base is 16-byte aligned, every stride but the last is a multiple of 8
+    elements and its last dim is ``width`` (default: its own); else a fresh
+    allocation, ``t`` zero-padded along its last dim to ``width`` or copied
+    as it is (``torch.empty(...).copy_(t)``: ``.contiguous()`` would keep
+    the misaligned base of a view that is already contiguous).  Works on
+    any device; the tests hold the plain versions on its output."""
+    width = t.shape[-1] if width is None else width
+    if width != t.shape[-1]:
+        out = t.new_zeros(*t.shape[:-1], width)
+        out[..., :t.shape[-1]] = t
+        return out
+    if t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:-1]):
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+
+
+def padded(n: int) -> int:
+    """The least multiple of 8 >= ``n``: a head dim, P or N as the bf16
+    kernels take it."""
+    return -(-n // 8) * 8
+
+
 def check_tensor_core_inputs(*tensors: torch.Tensor) -> None:
     """Raise on a bf16 input the tensor-core kernels cannot take: a head dim
     (of the first tensor) that is not a multiple of 8, or a base address or
     a stride other than the last that is not 16-byte aligned (their loads
     are 16-byte copies: 8 bf16 values, or 4 entries of decode's int32 pos).
-    Shared by flash and decode attention; the plain version on the CPU
-    takes any of these."""
+    Shared by flash and decode attention, whose wrappers pad and re-align
+    their operands first (``tensor_core_view``), so this is the last guard
+    before a launch."""
     d = tensors[0].shape[-1]
     if d % 8 != 0:
         raise ValueError(f"bf16 attention kernel: head dim {d} is not a "
@@ -107,11 +135,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float) -> torch.Tensor:
     """Launch the CUDA kernel of q's type on the current stream (inputs
     already checked by ``check_inputs``, on a CUDA device).  Returns a new
-    contiguous (B, S, H, D) tensor.  Raises if the launch fails, or if a
-    bf16 input does not suit the tensor-core kernel."""
+    contiguous (B, S, H, D) tensor.  A bf16 call with D not a multiple of 8
+    runs on q, k and v zero-padded to the next one, a misaligned bf16 view
+    on a fresh copy (``tensor_core_view``).  Raises if the launch fails."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {q.device}")
     b, s, h, d = q.shape
+    if q.dtype == torch.bfloat16:
+        q, k, v = (tensor_core_view(t, padded(d)) for t in (q, k, v))
+        if q.shape[-1] != d:
+            return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                        scale=scale)[..., :d].contiguous()
     if b * h > 65535:
         raise ValueError(f"flash_attention_cuda: B·H {b * h} > 65535")
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)

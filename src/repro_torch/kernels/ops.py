@@ -82,19 +82,27 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 def fcfs_scan(arrivals: torch.Tensor, service: torch.Tensor,
               type_of_slot: torch.Tensor, priority: torch.Tensor,
-              free0: torch.Tensor, qos_t: float, *, want_lat: bool = False,
-              want_start: bool = False) -> _fcfs.ScanResult:
-    """FCFS dispatch of W query streams over B slot layouts in one call:
+              free0: torch.Tensor, qos_t: float, *, policy=None,
+              n_active: torch.Tensor | None = None, want_lat: bool = False,
+              want_start: bool = False,
+              want_slot: bool = False) -> _fcfs.ScanResult:
+    """FCFS dispatch of W query streams over L slot layouts in one call:
     arrivals (W, nq) f32; service (W or 1, n_types, nq) f32; type_of_slot
-    (B, S) i32; priority (S,) f32; free0 (B, S) f32, the initial next-free
-    time of each slot (a huge value for an absent slot) → counts of queries
-    within ``qos_t`` (W, B) i32, latencies and start times (W, B, nq) f32
-    when asked, and the final next-free times (W, B, S) f32."""
-    _fcfs.check_inputs(arrivals, service, type_of_slot, priority, free0)
+    (L, S) i32; priority (S,) f32; free0 (L, S) f32, the initial next-free
+    time of each slot (a huge value for an absent slot), or (W, L, S), one
+    carry per workload row → counts of queries within ``qos_t`` (W, L) i32,
+    latencies and start times (W, L, nq) f32 when asked, and the final
+    next-free times (W, L, S) f32.  ``policy`` = (pref_slot (L, S),
+    affinity (L,), hedge (L,)) f32 routes the dispatch; ``n_active`` (L,)
+    i32 asks for the telemetry counters, ``want_slot`` for the winning slot
+    of every query (see ``kernels.fcfs_scan``)."""
+    _fcfs.check_inputs(arrivals, service, type_of_slot, priority, free0,
+                       policy, n_active)
+    kw = dict(policy=policy, n_active=n_active, want_lat=want_lat,
+              want_start=want_start, want_slot=want_slot)
     if _route("fcfs_scan", arrivals.device):
         return _fcfs.fcfs_scan_cuda(arrivals, service, type_of_slot,
-                                    priority, free0, qos_t,
-                                    want_lat=want_lat, want_start=want_start)
+                                    priority, free0, qos_t, **kw)
     return _fcfs.ScanResult(*fcfs_scan_ref(
         arrivals, service, type_of_slot, priority, free0, qos_t, _fcfs.BIG,
-        want_lat=want_lat, want_start=want_start))
+        **kw))

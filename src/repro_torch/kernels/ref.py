@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from .fcfs_scan import EDGE0_BITS, INF, N_BUCKETS, TIE
+
 
 def embedding_bag_ref(indices: torch.Tensor, table: torch.Tensor,
                       weights: torch.Tensor | None = None) -> torch.Tensor:
@@ -148,15 +150,52 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, 1, h, d)
 
 
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a·b + c`` of float32 tensors rounded once to float32, as a fused
+    multiply-add (CUDA's ``__fmaf_rn``; XLA fuses the reference's routed
+    dispatch keys into one, ROADMAP C-R18).
+
+    The product is exact in float64 and TwoSum gives the float64 sum's own
+    rounding error, so the float64 sum rounds to the right float32 except
+    when it lands exactly on a float32 tie with a nonzero error: then the
+    result is the neighbour on the error's side."""
+    x = a.double() * b.double()
+    c64 = c.double()
+    s = x + c64
+    v = s - x
+    err = (x - (s - v)) + (c64 - v)
+    f = s.float()
+    r = f.double()
+    toward = torch.where(s > r, float("inf"), float("-inf")).float()
+    g = torch.nextafter(f, toward)
+    tie = (s != r) & (s - r == g.double() - s) & (err != 0)
+    up = err > 0
+    hi, lo = torch.maximum(f, g), torch.minimum(f, g)
+    return torch.where(tie, torch.where(up, hi, lo), f)
+
+
+def bucket_edges(device=None) -> torch.Tensor:
+    """The telemetry histogram's 31 float32 edges ``1e-4 · 2^k``, k = 0..30,
+    built from float32 bit patterns on ``device`` (no copy from the host,
+    so a CUDA-graph capture may call it): the kernel's own edges, equal to
+    ``serving.telemetry.BUCKET_EDGES``."""
+    k = torch.arange(N_BUCKETS - 1, dtype=torch.int32, device=device)
+    return (EDGE0_BITS + (k << 23)).view(torch.float32)
+
+
 def fcfs_scan_ref(arrivals: torch.Tensor, service: torch.Tensor,
                   type_of_slot: torch.Tensor, priority: torch.Tensor,
                   free0: torch.Tensor, qos_t: float, big: float, *,
-                  want_lat: bool = False, want_start: bool = False):
-    """FCFS dispatch of W query streams over B slot layouts: arrivals
-    (W, nq) f32, service (W or 1, n_types, nq) f32, type_of_slot (B, S)
-    i32, priority (S,) f32, free0 (B, S) f32 → (counts (W, B) i32,
-    latencies (W, B, nq) f32 or None, start times (W, B, nq) f32 or None,
-    final next-free times (W, B, S) f32).
+                  policy=None, n_active: torch.Tensor | None = None,
+                  want_lat: bool = False, want_start: bool = False,
+                  want_slot: bool = False):
+    """FCFS dispatch of W query streams over L slot layouts: arrivals
+    (W, nq) f32, service (W or 1, n_types, nq) f32, type_of_slot (L, S)
+    i32, priority (S,) f32, free0 (L, S) or per row (W, L, S) f32 →
+    (counts (W, L) i32, latencies (W, L, nq) f32 or None, start times
+    (W, L, nq) f32 or None, final next-free times (W, L, S) f32, winning
+    slots (W, L, nq) i32 or None, telemetry counters (W, L, 3·n_types + 66)
+    i32 or None).
 
     The reference's ``_simulate_scan`` step (and its fused counter
     ``_grid_lane_qos_counts``) on every lane at once, query by query, in
@@ -166,26 +205,70 @@ def fcfs_scan_ref(arrivals: torch.Tensor, service: torch.Tensor,
     clamped to [0, n_types), as jnp's gather clamps); the slot's carry
     becomes ``finish``; the latency is ``finish - a`` and it counts when
     ``<= qos_t``.
+
+    ``policy`` = (pref_slot (L, S), affinity (L,), hedge (L,)) f32 routes
+    the dispatch as ``_simulate_scan_policy``: with ``svc`` the query's
+    service time on each slot's type, the first minimum of
+    ``fma(affinity, svc, pref_slot)·TIE + priority`` over the idle slots if
+    any is idle, else the first minimum of ``fma(hedge, svc, free)`` (the
+    other side keyed ``INF``).  ``n_active`` (L,) i32 asks for the
+    telemetry counters of ``_grid_lane_qos_counts_tel``, per lane: served,
+    QoS misses and busy milliseconds per type, the latency and wait
+    histograms (``bucket_edges``), then the sum and peak of the queue depth
+    ``n_active - #(free <= a)``.
     """
     n_w, nq = arrivals.shape
     n_b, n_s = type_of_slot.shape
     n_types = service.shape[1]
-    free = free0.unsqueeze(0).expand(n_w, n_b, n_s).clone()
+    dev = arrivals.device
+    free = free0.expand(n_w, n_b, n_s).clone()
     idle_key = priority - big           # float32: big and qos_t are scalars
     types = type_of_slot.long().clamp(0, n_types - 1).expand(n_w, n_b, n_s)
+    flat_types = types.reshape(n_w, n_b * n_s)
     service = service.expand(n_w, n_types, nq)
-    iota = torch.arange(n_s, device=free.device)
-    counts = torch.zeros((n_w, n_b), dtype=torch.int32, device=free.device)
-    lat = (torch.empty((n_w, n_b, nq), dtype=torch.float32,
-                       device=free.device) if want_lat else None)
-    starts = (torch.empty((n_w, n_b, nq), dtype=torch.float32,
-                          device=free.device) if want_start else None)
+    iota = torch.arange(n_s, device=dev)
+    counts = torch.zeros((n_w, n_b), dtype=torch.int32, device=dev)
+
+    def out(flag, dtype=torch.float32):
+        return (torch.empty((n_w, n_b, nq), dtype=dtype, device=dev)
+                if flag else None)
+
+    lat, starts, slots = out(want_lat), out(want_start), out(want_slot,
+                                                             torch.int32)
+    if policy is not None:
+        pref, aff, hedge = policy
+        aff, hedge = aff[None, :, None], hedge[None, :, None]
+    tel = None
+    if n_active is not None:
+        edges = bucket_edges(dev)
+        iota_t = torch.arange(n_types, device=dev)
+        iota_k = torch.arange(N_BUCKETS, device=dev)
+        served = torch.zeros((n_w, n_b, n_types), dtype=torch.int32,
+                             device=dev)
+        miss, busy = torch.zeros_like(served), torch.zeros_like(served)
+        lath = torch.zeros((n_w, n_b, N_BUCKETS), dtype=torch.int32,
+                           device=dev)
+        waith = torch.zeros_like(lath)
+        dsum = torch.zeros((n_w, n_b), dtype=torch.int32, device=dev)
+        dpeak = torch.zeros_like(dsum)
     for q in range(nq):
         a = arrivals[:, q, None]                                  # (W, 1)
-        key = torch.where(free <= a[..., None], idle_key, free)
-        slot = key.argmin(dim=-1, keepdim=True)                   # (W, B, 1)
-        start = torch.maximum(a, free.gather(-1, slot)[..., 0])   # (W, B)
-        svc = service[:, :, q].gather(1, types.gather(-1, slot)[..., 0])
+        idle = free <= a[..., None]
+        if policy is None:
+            key = torch.where(idle, idle_key, free)
+            slot = key.argmin(dim=-1, keepdim=True)               # (W, L, 1)
+        else:
+            svc_slot = service[:, :, q].gather(1, flat_types).reshape(
+                n_w, n_b, n_s)
+            ikey = torch.where(idle, fma32(aff, svc_slot, pref) * TIE
+                               + priority, INF)
+            bkey = torch.where(idle, INF, fma32(hedge, svc_slot, free))
+            slot = torch.where(idle.any(dim=-1, keepdim=True),
+                               ikey.argmin(dim=-1, keepdim=True),
+                               bkey.argmin(dim=-1, keepdim=True))
+        start = torch.maximum(a, free.gather(-1, slot)[..., 0])   # (W, L)
+        tslot = types.gather(-1, slot)[..., 0]
+        svc = service[:, :, q].gather(1, tslot)
         finish = start + svc
         free = torch.where(iota == slot, finish[..., None], free)
         q_lat = finish - a
@@ -194,4 +277,22 @@ def fcfs_scan_ref(arrivals: torch.Tensor, service: torch.Tensor,
             lat[:, :, q] = q_lat
         if want_start:
             starts[:, :, q] = start
-    return counts, lat, starts, free
+        if want_slot:
+            slots[:, :, q] = slot[..., 0].to(torch.int32)
+        if n_active is not None:
+            one_t = (iota_t == tslot[..., None]).to(torch.int32)
+            served += one_t
+            miss += one_t * (q_lat > qos_t).to(torch.int32)[..., None]
+            busy += one_t * torch.round(svc * 1000.0).to(torch.int32)[
+                ..., None]
+            wait = torch.clamp(start - a, min=0.0)
+            for hist, x in ((lath, q_lat), (waith, wait)):
+                k = (x[..., None] >= edges).sum(dim=-1, keepdim=True)
+                hist += (iota_k == k).to(torch.int32)
+            depth = n_active - idle.sum(dim=-1).to(torch.int32)
+            dsum += depth
+            dpeak = torch.maximum(dpeak, depth)
+    if n_active is not None:
+        tel = torch.cat([served, miss, busy, lath, waith, dsum[..., None],
+                         dpeak[..., None]], dim=-1)
+    return counts, lat, starts, free, slots, tel

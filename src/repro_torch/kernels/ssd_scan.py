@@ -16,10 +16,12 @@ The route is chosen by dtype, up front:
   kernel: a block of 8 warps per 64 columns of P, the state in registers as
   mma.sync.m16n8k16 accumulators (each warp 16 rows of P and half of N),
   C·Bᵀ once per chunk, the chunks by cp.async into a 2-stage ring, the
-  fp32 operands of the state products split into bf16 hi + lo.  It takes
-  P and N multiples of 8 and 16-byte aligned bases and strides;
-  ``check_tensor_core_inputs`` raises on anything else before the
-  launch.
+  fp32 operands of the state products split into bf16 hi + lo.  It reads
+  P and N multiples of 8 and 16-byte aligned bases and strides: the
+  wrapper zero-pads x along P and b, c along N (the padded products are
+  exact zeros, so y and the state keep their values), copies a misaligned
+  view (``flash_attention.tensor_core_view``) and slices y and the final
+  state back.
 * float32 goes to ``ssd_scan_f32``, fp32 FMAs, so fp32 results stay within
   2e-5 of the plain version.
 
@@ -35,7 +37,7 @@ import ctypes
 import torch
 
 from . import _build
-from .flash_attention import DTYPE_CODE
+from .flash_attention import DTYPE_CODE, padded, tensor_core_view
 
 CHUNK = 64           # the kernels' chunk length (rows)
 MAX_STATE = 256      # largest N their shared memory takes
@@ -90,7 +92,8 @@ def check_tensor_core_inputs(x: torch.Tensor, b: torch.Tensor,
     """Raise on a bf16 input the tensor-core kernel cannot take: P or N not
     a multiple of 8, or a base address or a stride other than the last of
     x, b, c that is not 16-byte aligned (its loads are 16-byte copies of 8
-    bf16 values).  The plain version on the CPU takes any of these."""
+    bf16 values).  ``ssd_scan_cuda`` pads and re-aligns first, so this is
+    the last guard before a launch."""
     p, n = x.shape[3], b.shape[3]
     if p % 8 != 0 or n % 8 != 0:
         raise ValueError(f"bf16 ssd_scan kernel: P {p} and N {n} must be "
@@ -109,12 +112,20 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     """Launch the CUDA kernel of x's type on the current stream (inputs
     already checked by ``check_inputs``, on a CUDA device).  Returns new
     contiguous y (B, L, H, P) in x's type and final state (B, H, P, N)
-    float32.  Raises if the launch fails, or if a bf16 input does not suit
-    the tensor-core kernel."""
+    float32.  A bf16 call with P or N not a multiple of 8 runs on x padded
+    along P and b, c along N with zeros, a misaligned bf16 view on a fresh
+    copy (``tensor_core_view``).  Raises if the launch fails."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_cuda needs CUDA tensors, got {x.device}")
     bsz, slen, h, p = x.shape
     n = b.shape[3]
+    if x.dtype == torch.bfloat16:
+        x = tensor_core_view(x, padded(p))
+        b, c = (tensor_core_view(t, padded(n)) for t in (b, c))
+        if (x.shape[3], b.shape[3]) != (p, n):
+            y, state = ssd_scan_cuda(x, dt, a_log, b, c)
+            return (y[..., :p].contiguous(),
+                    state[:, :, :p, :n].contiguous())
     if bsz > 65535 or h > 65535:
         raise ValueError(f"ssd_scan_cuda: B {bsz} or H {h} > 65535")
     y = torch.empty((bsz, slen, h, p), dtype=x.dtype, device=x.device)

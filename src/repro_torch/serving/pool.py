@@ -2,7 +2,8 @@
 
 ``PoolEvaluator`` is the black-box f(x) the paper's BO samples: it
 deploys a pool configuration against the query stream (the simulator) and
-returns the measured QoS satisfaction rate, memoized per configuration.
+returns the measured QoS satisfaction rate, memoized per configuration
+(per routing policy, and per warm carry for ``grid_from``).
 Counterpart of ``repro/serving/pool.py``; the simulator dispatches run on
 ``device`` (default ``cuda``).
 """
@@ -10,13 +11,15 @@ Counterpart of ``repro/serving/pool.py``; the simulator dispatches run on
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import ClassVar
 
 import numpy as np
 
 from ..core.search_space import SearchSpace
 from .instance import (AWS_INSTANCES, MODEL_PROFILES, PAPER_POOLS,
                        InstanceType, ModelProfile)
-from .simulator import PoolSimulator, _not_ported
+from .routing import RoutingPolicy
+from .simulator import PoolSimulator
 from .workload import BucketedWorkloadSpec, Workload, WorkloadSpec
 
 
@@ -25,21 +28,18 @@ def cost_effectiveness(perf_qps: float, price_per_hour: float) -> float:
     return 3600.0 * perf_qps / price_per_hour
 
 
-def _refuse_policy(policy) -> None:
-    if policy is not None:
-        raise _not_ported("routing policies (policy=)", "A-8")
-
-
 @dataclass
 class PoolEvaluator:
     """QoS oracle over a fixed (model, type order, workload).
 
     Memoized per configuration (per (load factor, configuration) cell for
-    ``grid``); ``n_evals`` counts the configurations (cells) newly
-    simulated, as in the reference.  The misses of one call are simulated
-    in one dispatch: the reference cut them into power-of-two chunks of at
-    most 64 to bound the number of XLA executables, which a CUDA kernel
-    does not need, and a lane's result does not depend on its batch.
+    ``grid``), with one memo pair per routing policy and an LRU of memos per
+    warm carry for ``grid_from``; ``n_evals`` counts the configurations
+    (cells) newly simulated, as in the reference.  The misses of one call
+    are simulated in one dispatch: the reference cut them into power-of-two
+    chunks of at most 64 to bound the number of XLA executables, which a
+    CUDA kernel does not need, and a lane's result does not depend on its
+    batch.
     """
 
     model: ModelProfile
@@ -49,6 +49,11 @@ class PoolEvaluator:
     device: object = None
     n_evals: int = field(default=0, init=False)
 
+    # Warm-keyed memo bound: per-cell caches are kept for this many distinct
+    # (state, deployed, now, warmup, policy) warm keys, LRU — every
+    # adaptation cut carries a fresh backlog, so old cuts age out.
+    _warm_states: ClassVar[int] = 4
+
     def __post_init__(self):
         self.sim = PoolSimulator(self.model, self.types, self.workload,
                                  max_instances=self.max_instances,
@@ -57,49 +62,72 @@ class PoolEvaluator:
         # (load_factor, config) -> rate for factors != 1.0; the unit factor
         # shares self._cache.
         self._grid_cache: dict[tuple[float, tuple[int, ...]], float] = {}
+        # warm key -> {(load_factor, config) -> rate}; see grid_from.
+        self._warm_cache: dict[tuple, dict] = {}
+        # RoutingPolicy.key() -> (cold cache, grid cache): each policy gets
+        # its own memo pair; the pair above is the policy=None view.
+        self._policy_caches: dict[tuple, tuple[dict, dict]] = {}
+
+    @staticmethod
+    def _policy_key(policy: RoutingPolicy | None):
+        if policy is None:
+            return None
+        if policy.stacked:
+            raise ValueError(
+                "PoolEvaluator memoizes per single policy; score stacked "
+                "policies through PoolSimulator.qos or pass policy.row(p)")
+        return policy.key()
+
+    def _caches_for(self, pk) -> tuple[dict, dict]:
+        if pk is None:
+            return self._cache, self._grid_cache
+        return self._policy_caches.setdefault(pk, ({}, {}))
 
     def __call__(self, config, *, policy=None) -> float:
-        _refuse_policy(policy)
         key = tuple(int(c) for c in config)
-        if key not in self._cache:
-            self._cache[key] = float(self.sim.qos(key).rates)
+        cache, _ = self._caches_for(self._policy_key(policy))
+        if key not in cache:
+            cache[key] = float(self.sim.qos(key, policy=policy).rates)
             self.n_evals += 1
-        return self._cache[key]
-
-    def _cell_get(self, factor: float, key: tuple[int, ...]):
-        if factor == 1.0:
-            return self._cache.get(key)
-        return self._grid_cache.get((factor, key))
-
-    def _cell_put(self, factor: float, key: tuple[int, ...], rate: float):
-        if factor == 1.0:
-            self._cache[key] = rate
-        else:
-            self._grid_cache[(factor, key)] = rate
+        return cache[key]
 
     def batch(self, configs, *, policy=None) -> np.ndarray:
         """QoS rates for many configs, aligned with ``configs``: the memo's
-        misses (deduplicated) in one batched dispatch."""
-        _refuse_policy(policy)
+        misses (deduplicated; ``policy=`` selects that policy's memo) in one
+        batched dispatch."""
         keys = [tuple(int(c) for c in cfg) for cfg in configs]
-        missing = [k for k in dict.fromkeys(keys) if k not in self._cache]
+        cache, _ = self._caches_for(self._policy_key(policy))
+        missing = [k for k in dict.fromkeys(keys) if k not in cache]
         if missing:
-            rates = self.sim.qos(np.asarray(missing, dtype=np.int64)).rates
+            rates = self.sim.qos(np.asarray(missing, dtype=np.int64),
+                                 policy=policy).rates
             for k, r in zip(missing, rates):
-                self._cache[k] = float(r)
+                cache[k] = float(r)
             self.n_evals += len(missing)
-        return np.asarray([self._cache[k] for k in keys], dtype=np.float64)
+        return np.asarray([cache[k] for k in keys], dtype=np.float64)
 
     def grid(self, configs, load_factors, *, policy=None) -> np.ndarray:
         """QoS rates on the (load level × config) grid: (W, B) float64,
         cell ``[w, b]`` what an evaluator bound to
         ``workload.scaled(load_factors[w])`` measures for ``configs[b]``.
         Misses are evaluated as a cross product (every load level with any
-        miss × every config missing somewhere) in one grid dispatch."""
-        _refuse_policy(policy)
+        miss × every config missing somewhere) in one grid dispatch;
+        ``policy=`` routes and selects that policy's memo pair."""
+        cache, grid_cache = self._caches_for(self._policy_key(policy))
+
+        def cell_get(f, k):
+            return cache.get(k) if f == 1.0 else grid_cache.get((f, k))
+
+        def cell_put(f, k, rate):
+            if f == 1.0:
+                cache[k] = rate
+            else:
+                grid_cache[(f, k)] = rate
+
         return self._sweep_grid(
-            configs, load_factors, self._cell_get, self._cell_put,
-            lambda cols, rows: self.sim.qos(cols, workloads=rows).rates)
+            configs, load_factors, cell_get, cell_put,
+            lambda cols, rows: self.sim.qos(cols, workloads=rows,
+                                            policy=policy).rates)
 
     def _sweep_grid(self, configs, load_factors, cell_get, cell_put,
                     dispatch) -> np.ndarray:
@@ -122,8 +150,37 @@ class PoolEvaluator:
         return np.asarray([[cell_get(f, k) for k in keys]
                            for f in factors], dtype=np.float64)
 
-    def grid_from(self, *args, **kwargs):
-        raise _not_ported("PoolEvaluator.grid_from (warm starts)", "A-7")
+    def grid_from(self, state, configs, load_factors, *, deployed=None,
+                  now=None, warmup=None, policy=None) -> np.ndarray:
+        """Warm-start ``grid``: QoS rates of candidate pools scored from a
+        live carry (each candidate's initial state the ``PoolState.remap``
+        of the ``deployed`` pool at ``now``, added slots paying their
+        ``warmup`` cold start).  Cell ``[w, b]`` equals the warm single
+        lane on the scaled workload from that candidate's remapped state.
+        Memoized per (warm state, load factor, config) cell, the per-state
+        memos LRU-bounded (``_warm_states``)."""
+        warm_key = (
+            None if deployed is None else tuple(int(c) for c in deployed),
+            None if now is None else float(now),
+            None if warmup is None else tuple(float(w) for w in warmup),
+            float(state.clock),
+            tuple(np.asarray(state.free, dtype=np.float64).tolist()),
+            self._policy_key(policy),
+        )
+        cache = self._warm_cache.pop(warm_key, None)
+        if cache is None:
+            cache = {}
+            while len(self._warm_cache) >= self._warm_states:
+                self._warm_cache.pop(next(iter(self._warm_cache)))
+        # (Re-)inserting moves the key to the recent end of the dict.
+        self._warm_cache[warm_key] = cache
+        return self._sweep_grid(
+            configs, load_factors,
+            lambda f, k: cache.get((f, k)),
+            lambda f, k, rate: cache.__setitem__((f, k), rate),
+            lambda cols, rows: self.sim.qos(
+                cols, workloads=rows, state=state, deployed=deployed,
+                now=now, warmup=warmup, policy=policy).rates)
 
     def exhaustive(self, space: SearchSpace, qos_target: float,
                    load_factor: float = 1.0, *, policy=None):
@@ -131,13 +188,12 @@ class PoolEvaluator:
         normalizer), in one batched sweep, or a one-row grid sweep for
         ``load_factor != 1``.  Returns (best_config, best_cost,
         exhaustive_cost)."""
-        _refuse_policy(policy)
         lattice = space.enumerate()
         costs = space.costs(lattice)
         if load_factor == 1.0:
-            rates = self.batch(lattice)
+            rates = self.batch(lattice, policy=policy)
         else:
-            rates = self.grid(lattice, [load_factor])[0]
+            rates = self.grid(lattice, [load_factor], policy=policy)[0]
         total = float(costs.sum())
         feasible = rates >= qos_target
         if not feasible.any():
@@ -149,13 +205,12 @@ class PoolEvaluator:
 def best_homogeneous(evaluator: PoolEvaluator, type_index: int, prices,
                      qos_target: float, cap: int = 24, *, policy=None):
     """Minimum-count homogeneous pool of one type meeting QoS, evaluated as
-    one batched sweep over counts 1..cap.  Returns (count, cost) or
-    (None, inf)."""
-    _refuse_policy(policy)
+    one batched sweep over counts 1..cap (under ``policy=``, its memo).
+    Returns (count, cost) or (None, inf)."""
     n = len(evaluator.types)
     cfgs = np.zeros((cap, n), dtype=np.int64)
     cfgs[:, type_index] = np.arange(1, cap + 1)
-    rates = evaluator.batch(cfgs)
+    rates = evaluator.batch(cfgs, policy=policy)
     ok = np.nonzero(rates >= qos_target)[0]
     if ok.size == 0:
         return None, np.inf

@@ -434,3 +434,53 @@ def test_cuda_entries_raise_on_cpu_tensors():
         decode_attention_cuda(**_decode_args(), scale=1.0)
     assert flash_attention_cuda.launches == 0
     assert decode_attention_cuda.launches == 0
+
+
+# ------------------------------------------ C-F2: padded, re-aligned inputs
+def _rel_diff(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["D 36", "D 100", "view offset by one"])
+def test_padded_realigned_operands_keep_the_result(case, dtype):
+    """What the bf16 wrappers hand the tensor-core kernels in place of an
+    input they cannot read (ROADMAP C-F2): q, k and v zero-padded along D
+    to the next multiple of 8, or a misaligned view copied to a fresh
+    allocation (``tensor_core_view``).  The plain versions on those
+    operands, the output sliced back to D and the scale that of the
+    original D, equal the plain versions on the original inputs within
+    float32 rounding (fp32: 1e-6 x max |out|; bf16, whose probabilities
+    are rounded to bf16 after float32 scores, one bf16 step: 2^-8)."""
+    rng = np.random.default_rng(17)
+    tdt = DTYPES[dtype][1]
+    d = {"D 36": 36, "D 100": 100, "view offset by one": 64}[case]
+    b, s, t, h, kh = 2, 96, 160, 8, 2
+    q, k, v = (torch.from_numpy(_normal(rng, shape)).to(tdt)
+               for shape in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d)))
+    pos = torch.arange(t, dtype=torch.int32)
+    pos[-7:] = -1
+    if case == "view offset by one":
+        k = torch.cat([k.reshape(-1)[:1], k.reshape(-1)]).reshape(-1)[1:] \
+            .view(k.shape)
+        pos = torch.cat([pos[:1], pos])[1:]
+        assert k.data_ptr() % 16 != 0 and pos.data_ptr() % 16 != 0
+    width = flash_mod.padded(d)
+    qp, kp, vp = (flash_mod.tensor_core_view(x, width) for x in (q, k, v))
+    posp = flash_mod.tensor_core_view(pos)
+    for x, xp in ((q, qp), (k, kp), (v, vp), (pos, posp)):
+        assert xp.data_ptr() % 16 == 0 and xp.shape[-1] % 8 == 0 \
+            if xp.dtype != torch.int32 else xp.data_ptr() % 16 == 0
+        assert torch.equal(xp[..., :x.shape[-1]], x)
+        assert not xp[..., x.shape[-1]:].any()
+    check_tensor_core_inputs(qp, kp, vp, posp)
+    tol = 1e-6 if dtype == "float32" else 2.0 ** -8
+    scale = d ** -0.5
+    want = ops.flash_attention(q, k, v, window=48, scale=scale)
+    got = ops.flash_attention(qp, kp, vp, window=48, scale=scale)[..., :d]
+    assert _rel_diff(got, want) <= tol
+    want = ops.decode_attention(q[:, :1], k, v, pos, scale=scale)
+    got = ops.decode_attention(qp[:, :1], kp, vp, posp, scale=scale)[..., :d]
+    assert _rel_diff(got, want) <= tol
+    assert all(flash_mod.tensor_core_view(x) is x for x in (qp, kp, vp))

@@ -50,6 +50,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
             "repro_torch.serving.simulator", "repro_torch.serving.pool",
             "repro_torch.core.baselines",
             "repro_torch.kernels.fcfs_scan"} <= set(modules)
+    assert {"repro_torch.serving.telemetry", "repro_torch.serving.routing",
+            "repro_torch.serving.autoscaler",
+            "repro_torch.serving.handoff"} <= set(modules)
     bad = [m for m in loaded if m == "jax" or m.startswith(("jax.", "jaxlib"))
            or m == "repro" or m.startswith("repro.")]
     assert bad == []
@@ -61,8 +64,9 @@ def _entry_points():
     from repro_torch.core.gp import GaussianProcess
     from repro_torch.models.paper_models import make_random_batch, mtwnd_init
     from repro_torch.models.transformer import get_model, lm_from_numpy
-    from repro_torch.serving import (PoolEvaluator, PoolSimulator,
-                                     make_paper_setup, paper_workload)
+    from repro_torch.serving import (PoolEvaluator, PoolSimulator, PoolState,
+                                     make_paper_setup, paper_workload,
+                                     rescale)
     from repro_torch.serving.engine import DEFAULT_CELLS, ClusterEngine
     from repro_torch.serving.instance import AWS_INSTANCES, MODEL_PROFILES
     space = SearchSpace((2, 2), (1.0, 2.0))
@@ -88,6 +92,13 @@ def _entry_points():
         "PoolSimulator": lambda: PoolSimulator(*pool_args),
         "PoolEvaluator": lambda: PoolEvaluator(*pool_args),
         "make_paper_setup": lambda: make_paper_setup("mtwnd", n_queries=10),
+        "segment_from": lambda: PoolSimulator(*pool_args).segment_from(
+            PoolState.idle(40), (1,)),
+        "grid_from": lambda: PoolEvaluator(*pool_args).grid_from(
+            PoolState.idle(40), [(1,)], [1.0]),
+        "rescale": lambda: rescale(RibbonOptimizer(space),
+                                   PoolEvaluator(*pool_args),
+                                   load_factors=[1.0, 1.5]),
     }
 
 
@@ -98,7 +109,8 @@ def _entry_points():
                                   "lm_from_numpy", "ssm_init_params",
                                   "ssm_init_cache", "hybrid_init_params",
                                   "hybrid_init_cache", "PoolSimulator",
-                                  "PoolEvaluator", "make_paper_setup"])
+                                  "PoolEvaluator", "make_paper_setup",
+                                  "segment_from", "grid_from", "rescale"])
 def test_entry_point_without_device_raises_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card: the default device is valid")

@@ -28,6 +28,7 @@ from repro_torch.core import run_ribbon  # noqa: E402
 from repro_torch.core import search_space as tss  # noqa: E402
 from repro_torch.serving import instance as tinst  # noqa: E402
 from repro_torch.serving import pool as tpool  # noqa: E402
+from repro_torch.serving import routing as troute  # noqa: E402
 from repro_torch.serving import workload as twl  # noqa: E402
 
 CPU = "cpu"
@@ -237,14 +238,20 @@ def test_solve_bucketed_refusals_match(ref):
 
 
 def test_unported_options_name_their_item(mtwnd):
+    """The ``policy=`` option (A-8) and ``grid_from`` (A-7), refused before
+    they were ported, now run: under the identity policy every entry point
+    gives the rates of ``policy=None`` (from the identity policy's own
+    memo), and ``grid_from`` from the idle carry gives the cold grid's."""
     _, tev, space = mtwnd
-    for call in (lambda: tev((1, 1, 1), policy=object()),
-                 lambda: tev.batch([(1, 1, 1)], policy=object()),
-                 lambda: tev.grid([(1, 1, 1)], [1.0], policy=object()),
-                 lambda: tev.exhaustive(space, 0.99, policy=object()),
-                 lambda: tpool.best_homogeneous(tev, 0, space.prices, 0.99,
-                                                policy=object())):
-        with pytest.raises(NotImplementedError, match="A-8"):
-            call()
-    with pytest.raises(NotImplementedError, match="A-7"):
-        tev.grid_from(None, [(1, 1, 1)], [1.0])
+    fcfs = troute.RoutingPolicy.fcfs(3)
+    for call in (lambda **kw: tev((1, 1, 1), **kw),
+                 lambda **kw: tev.batch([(1, 1, 1)], **kw),
+                 lambda **kw: tev.grid([(1, 1, 1)], [1.0, 1.2], **kw),
+                 lambda **kw: tev.exhaustive(space, 0.99, **kw),
+                 lambda **kw: tpool.best_homogeneous(tev, 0, space.prices,
+                                                     0.99, **kw)):
+        assert repr(call(policy=fcfs)) == repr(call())
+    assert fcfs.key() in tev._policy_caches
+    idle = tev.sim.initial_state()
+    np.testing.assert_array_equal(tev.grid_from(idle, [(1, 1, 1)], [1.0]),
+                                  tev.grid([(1, 1, 1)], [1.0]))

@@ -22,6 +22,7 @@ from repro_torch.kernels import fcfs_scan as tfcfs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ref import fcfs_scan_ref  # noqa: E402
 from repro_torch.serving import instance as tinst  # noqa: E402
+from repro_torch.serving import routing as troute  # noqa: E402
 from repro_torch.serving import simulator as tsim  # noqa: E402
 from repro_torch.serving import workload as twl  # noqa: E402
 
@@ -249,29 +250,55 @@ def test_every_lane_goes_through_fcfs_scan(setups, monkeypatch):
     assert tsim_.n_dispatches == before + 3
 
 
-# --------------------------------------------------------- not ported yet
+# ------------------------------------ the lanes once refused (A-7 to A-9)
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(state=object()), "A-7"),
+    (dict(state="idle"), "A-7"),
     (dict(deployed=(1, 0, 0)), "A-7"),
-    (dict(policy=object()), "A-8"),
+    (dict(policy="fcfs"), "A-8"),
     (dict(telemetry=True), "A-9"),
 ])
 def test_unported_arguments_name_their_item(setups, kwargs, item):
+    """The warm (A-7), routed (A-8) and telemetry (A-9) arguments, refused
+    before the lanes were ported, now run: from the idle carry, under the
+    identity policy and with telemetry on, the single and grid lanes equal
+    the cold, unrouted lanes bit for bit; ``deployed=`` without a state is
+    refused as the reference refuses it."""
     _, tsim_ = setups["mtwnd"]
-    for fn in (tsim_.simulate, tsim_.qos):
-        with pytest.raises(NotImplementedError, match=item):
-            fn((1, 1, 1), **kwargs)
-    if "state" in kwargs:
-        with pytest.raises(NotImplementedError, match="A-7"):
-            tsim_.qos(np.ones((2, 3)), workloads=[1.0], states=[None])
+    kw = dict(kwargs)
+    if kw.get("state") == "idle":
+        kw["state"] = tsim_.initial_state()
+    if kw.get("policy") == "fcfs":
+        kw["policy"] = troute.RoutingPolicy.fcfs(3)
+    if "deployed" in kw:
+        for fn in (tsim_.simulate, tsim_.qos):
+            with pytest.raises(ValueError, match="require state="):
+                fn((1, 1, 1), **kw)
+        kw["state"] = tsim_.initial_state()
+        kw["deployed"] = (0, 0, 0)
+    cold = tsim_.simulate((1, 1, 1))
+    got = tsim_.simulate((1, 1, 1), **kw)
+    _equal(got.lat, cold.lat)
+    _equal(got.waits, cold.waits)
+    assert tsim_.qos((1, 1, 1), **kw).rates == tsim_.qos((1, 1, 1)).rates
+    if kwargs.get("telemetry"):
+        assert got.telemetry.n == N_QUERIES
+    cfgs = np.ones((2, 3), np.int64)
+    grid = dict(kw)
+    if "state" in grid:
+        grid = dict(states=[(grid["state"], grid.get("deployed"))])
+    _equal(tsim_.qos(cfgs, workloads=[1.0], **grid).rates,
+           tsim_.qos(cfgs, workloads=[1.0]).rates)
 
 
 def test_unported_entry_points_name_their_item(setups):
+    """``segment_from`` (A-7) and ``tail_latency`` (A-9) run; the streaming
+    simulator (A-10) is still refused with its item."""
     _, tsim_ = setups["mtwnd"]
-    with pytest.raises(NotImplementedError, match="A-7"):
-        tsim_.segment_from(None, (1, 1, 1))
-    with pytest.raises(NotImplementedError, match="A-9"):
-        tsim_.tail_latency((1, 1, 1))
+    seg = tsim_.segment_from(tsim_.initial_state(), (1, 1, 1))
+    _equal(seg.lat, tsim_.simulate((1, 1, 1)).lat)
+    tail = tsim_.tail_latency((1, 1, 1))
+    assert tail == tsim_.qos((1, 1, 1), telemetry=True).telemetry \
+        .latency_percentile(99.0)
     with pytest.raises(NotImplementedError, match="A-10"):
         tsim.StreamingSimulator(tsim_.model, tsim_.types, None)
 
@@ -301,8 +328,9 @@ def test_plain_scan_matches_reference_kernels(ref, seed, ties):
     prio = np.arange(tos.shape[1], dtype=np.float32)
     qos_t = ref["sim"]._qos_threshold_f32(0.02)
     targs = [torch.from_numpy(x) for x in (arr, svc, tos, prio, free0)]
-    counts, lat, start, free = fcfs_scan_ref(
+    counts, lat, start, free, slot, tel = fcfs_scan_ref(
         *targs, qos_t, tfcfs.BIG, want_lat=True, want_start=True)
+    assert slot is None and tel is None
     jfree, (jlat, jstart, _) = ref["sim"]._simulate_scan_grid_tables(
         jnp.asarray(arr), jnp.asarray(svc), jnp.asarray(tos),
         jnp.asarray(prio), jnp.asarray(free0))

@@ -506,3 +506,37 @@ def test_bf16_route_refuses_before_any_launch(monkeypatch, name):
     x, dt, a_log, b, c = args[:5]
     y, _ = ops.ssd_scan(x, dt, a_log, b, c)     # the CPU route takes it
     assert y.shape == x.shape and torch.isfinite(y.float()).all()
+
+
+# ------------------------------------------ C-F2: padded, re-aligned inputs
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["P 50, N 20", "view offset by one"])
+def test_padded_realigned_operands_keep_the_result(case, dtype):
+    """What the bf16 wrapper hands the tensor-core kernel in place of an
+    input it cannot read (ROADMAP C-F2): x zero-padded along P and b, c
+    along N to the next multiple of 8, or a misaligned view copied to a
+    fresh allocation (``tensor_core_view``).  The plain version on those
+    operands, y and the final state sliced back, equals the plain version
+    on the original inputs within float32 rounding (1e-6 x max |want|; the
+    padded products are exact zeros, and y is cast to x's type once, so
+    bf16 is held to the same gate)."""
+    from repro_torch.kernels.flash_attention import padded, tensor_core_view
+    from repro_torch.kernels.ssd_scan import check_tensor_core_inputs
+    p, n = (50, 20) if case.startswith("P") else (16, 16)
+    x, dt, a_log, b, c = _torch(_inputs(23, 2, 70, 4, p, 2, n), dtype)
+    if case == "view offset by one":
+        x = torch.cat([x.reshape(-1)[:1], x.reshape(-1)])[1:].view(x.shape)
+        assert x.data_ptr() % 16 != 0
+    xp = tensor_core_view(x, padded(p))
+    bp, cp = (tensor_core_view(t, padded(n)) for t in (b, c))
+    check_tensor_core_inputs(xp, bp, cp)
+    for t, tp in ((x, xp), (b, bp), (c, cp)):
+        assert torch.equal(tp[..., :t.shape[-1]], t)
+        assert not tp[..., t.shape[-1]:].any()
+    y, state = ops.ssd_scan(x, dt, a_log, b, c)
+    yp, statep = ops.ssd_scan(xp, dt, a_log, bp, cp)
+    assert not statep[:, :, p:].any() and not statep[..., n:].any()
+    for got, want in ((yp[..., :p], y), (statep[:, :, :p, :n], state)):
+        rel = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        assert rel <= 1e-6

@@ -46,8 +46,13 @@ print a line and raise on failure:
    per-row carries on a 3-row grid (cold and routed), the dispatch trace,
    the counters with and without a policy, ties with absent slots, an
    all-zero pool and warm carries, and 130 slots (K = 8) with every flag
-   on, and the identity policy against the cold flavour; and the bf16
-   attention and SSD-scan kernels on inputs they cannot read in place
+   on, and the identity policy against the cold flavour; then cases built
+   to catch its vote-and-reduce pick out (one idle slot in the last k,
+   every slot idle, a busy minimum tied on slots 7 and 37, routed keys
+   negative, -0 and +0, S 40, 130 and 1024, a non-ascending or collapsed
+   priority, negative arrivals with a busy key under an idle one), cold
+   and with the trace and counters on; and the bf16 attention and
+   SSD-scan kernels on inputs they cannot read in place
    (ROADMAP C-F2: flash and decode attention at D 36 and D 100, ssd_scan
    at P 50, N 20, and views offset by one element), padded or copied by
    the wrappers, against the plain versions with the gates above, each
@@ -110,7 +115,10 @@ launches, error against its plain version and times at its path's shape
 plain version and library call device-only (CUDA graph) and eager, and the
 bound (bytes over the card's memory rate or operations over its rate for
 their type, bf16 tensor or fp32, whichever is larger); for fcfs_scan also
-each flavour's times, bound and launches on the load-change path.  The last line is
+each flavour's times beside its times before the redesign, ns a query,
+bound and launches on the
+load-change path, and one batch dispatch's host time, printed with the
+card's name and power limit.  The last line is
 ``{"ok": true, "device": {...}}``.  Float32 matrix products and
 convolutions run in full float32 (TF32 off), as the JAX reference
 computes.  Exits non-zero, with no result line, without a card or outside
@@ -283,6 +291,18 @@ LM_RUNS = [
           {"ssd_scan": 54, "flash_attention": 9}, {"decode_attention": 9}),
 ]
 
+# fcfs_scan at the batch lane's shape before its redesign (a 5-round
+# shuffle argmin a query; chip_smoke.py on BEFORE_CARD): device-only and
+# eager ms per flavour, and one 64-pool batch dispatch end to end when it
+# copied latencies to the host.  Copied, not measured by this run, so
+# printed in the ``[fcfs]`` text lines only, never in the kernels line.
+FCFS_BEFORE_MS = {"cold": (0.3412, 0.3428), "policy": (0.7062, 0.7098),
+                  "telemetry": (0.4565, 0.4589), "trace": (0.3469, 0.3505)}
+FCFS_BEFORE_DISPATCH_MS = 1.072
+BEFORE_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+# The card's name and power limit as nvidia-smi reads them (device_phase).
+CARD = {"smi": "not read"}
+
 PAPER_MODELS = ("mtwnd", "dien", "candle", "resnet50", "vgg19")
 # The search path's anchor (the quickstart): mtwnd, 1500 queries, seed 0.
 ANCHOR = dict(model="mtwnd", qos_target=0.99, budget=80, start=(5, 0, 0))
@@ -362,7 +382,8 @@ def device_phase() -> str:
     name = torch.cuda.get_device_name(0)
     phase("device", f"{name}, torch {torch.__version__}, CUDA "
                     f"{torch.version.cuda}, {torch.cuda.device_count()} card(s)")
-    print(smi.splitlines()[0], flush=True)
+    CARD["smi"] = smi.splitlines()[0]
+    print(CARD["smi"], flush=True)
     return name
 
 
@@ -780,6 +801,125 @@ def _fcfs_flavour_cases():
     return cases, (ops16, identity)
 
 
+def _pick_ops(arrivals, service, tos, free0, priority=None):
+    """fcfs_scan's operands on the card for a hand-built case: arrivals
+    (nq,), service (n_types, nq), type_of_slot and free0 (L, S), priority
+    (S,) (``arange(S)`` by default), QoS latency 20 ms."""
+    def dev(x, dtype=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).cuda()
+
+    n_s = tos.shape[1]
+    prio = np.arange(n_s) if priority is None else priority
+    return (dev(np.asarray(arrivals)[None]), dev(np.asarray(service)[None]),
+            dev(tos, np.int32), dev(prio), dev(free0),
+            _qos_threshold_f32(0.02))
+
+
+def _fcfs_pick_cases():
+    """(label, operands, flags) built to catch the vote-and-reduce pick
+    out: exactly one idle slot, in the last k; every slot idle; equal
+    next-free times on slots 7 and 37 as the only minimum (a pick by lowest
+    thread would take 37); routed keys that are negative, -0 and +0; S 40,
+    130 and 1024 (S not a multiple of 32, K up to 32), large pools and
+    small ones padded with absent slots; a non-ascending priority and one
+    that BIG's shift collapses; negative arrivals (the general key images),
+    with a busy key under an idle one.  Each cold
+    case runs plain and with the trace and the counters on."""
+    rng = np.random.default_rng(18)
+    nq, n_types = 300, 3
+    cases = []
+
+    def types(rows, n_s):
+        return rng.integers(0, n_types, (rows, n_s))
+
+    for n_s in (40, 130, 1024):
+        last = np.arange((n_s - 1) // 32 * 32, n_s)
+        at = last[np.linspace(0, len(last) - 1, min(8, len(last))).astype(int)]
+        free0 = np.full((len(at), n_s), 10.0)
+        free0[np.arange(len(at)), at] = 0.0
+        cases.append((f"one idle slot in the last k, S {n_s}",
+                      (np.arange(nq) * 0.001,
+                       rng.uniform(0.04, 0.06, (n_types, nq)),
+                       types(len(at), n_s), free0)))
+        cases.append((f"every slot idle, S {n_s}",
+                      (np.arange(nq) * 1.0, np.full((n_types, nq), 0.01),
+                       types(4, n_s), np.zeros((4, n_s)))))
+    for n_s, pairs in ((40, [(7, 37), (31, 32), (3, 35), (8, 33)]),
+                       (1024, [(7, 37), (40, 1000)])):
+        free0 = np.full((len(pairs), n_s), 5.0)
+        for i, pair in enumerate(pairs):
+            free0[i, list(pair)] = 2.0
+        cases.append((f"busy minimum tied on slots {pairs}, S {n_s}",
+                      (0.5 + np.arange(nq) * 0.001,
+                       rng.uniform(0.01, 0.03, (n_types, nq)),
+                       types(len(pairs), n_s), free0)))
+    batch = _fcfs_inputs("mtwnd", _configs(rng, (8, 10, 12), 16), 40)
+    host = [x.cpu().numpy() for x in batch[:5]]
+    arr, svc, tos, _, fr0 = host[0][0], host[1][0], host[2], host[3], host[4]
+    cases.append(("non-ascending priority, 16 mtwnd pools",
+                  (arr, svc, tos, fr0, rng.permutation(40))))
+    cases.append(("priority collapsed by the shift, 16 mtwnd pools",
+                  (arr, svc, tos, fr0, np.arange(40) * 0.01)))
+    low = np.full((2, 40), -999994.0)
+    low[:, 10] = -999995.0
+    cases.append(("negative arrivals, a busy key under an idle one",
+                  (-999995.0 + np.arange(nq) * 0.0625,
+                   np.full((n_types, nq), 0.125), types(2, 40), low)))
+    profile = MODEL_PROFILES["resnet50"]
+    wl = paper_workload("resnet50")
+    res_types = [AWS_INSTANCES[n] for n in PAPER_POOLS["resnet50"]["diverse"]]
+    res_svc = service_table_for(profile, res_types, wl)
+    for label, bounds in (("large pools", (300, 300, 400)),
+                          ("small pools padded with absent slots",
+                           (2, 3, 2))):
+        pools = _configs(rng, bounds, 8)
+        tos, active = _expand_slots(pools, 3, 1024)
+        busy = rng.uniform(size=tos.shape) < 0.5
+        free0 = np.where(active, np.where(busy, rng.uniform(0, 0.05,
+                                                           tos.shape), 0.0),
+                         1e30)
+        cases.append((f"S 1024 (K 32), {label}, warm",
+                      (wl.arrivals, res_svc, tos, free0)))
+    out, small = [], None
+    for label, args in cases:
+        ops_ = _pick_ops(*args[:4], *args[4:])
+        if "absent slots" in label:
+            small = ops_
+        n_active = (ops_[4] < 1e29).sum(dim=1).to(torch.int32)
+        out.append((label, ops_, {}))
+        out.append((label + ", trace and counters", ops_,
+                    dict(want_slot=True, n_active=n_active)))
+    # routed keys that are negative, -0 and +0: signed-zero priorities and
+    # preferences, affinity and hedge of -0, 0 and -1, arrivals below 0 and
+    # next-free times of -0 and +0 among busy slots
+    n_s, lanes = 40, 6
+    zeros = np.array([-0.0, 0.0], np.float32)
+    prio = zeros[np.arange(n_s) % 2]
+    free0 = rng.choice(np.array([-0.0, 0.0, -2.0, 0.3], np.float32),
+                       (lanes, n_s), p=[0.3, 0.3, 0.1, 0.3])
+    ops_ = _pick_ops(-1.0 + np.arange(nq) * 0.002,
+                     rng.uniform(0.003, 0.01, (n_types, nq)),
+                     types(lanes, n_s), free0, prio)
+    pol = tuple(torch.from_numpy(np.ascontiguousarray(x, np.float32)).cuda()
+                for x in (rng.choice(np.array([-0.0, 0.0, -1.0], np.float32),
+                                     (lanes, n_s)),
+                          [-0.0, 0.0, -1.0, -0.0, 0.0, -1.0],
+                          [-0.0, -0.0, -0.0, -1.0, -1.0, 0.5]))
+    out.append(("routed keys negative, -0 and +0, S 40", ops_,
+                dict(policy=pol)))
+    out.append(("routed keys negative, -0 and +0, S 40, every flag", ops_,
+                dict(policy=pol, want_slot=True,
+                     n_active=torch.full((lanes,), n_s, dtype=torch.int32,
+                                         device="cuda"))))
+    tos, pol = _policy_ops(named_policy("hedged", tuple(
+        t.price for t in res_types)), small[2])
+    out.append(("S 1024 (K 32), small pools, hedged, every flag",
+                (*small[:2], tos, *small[3:]),
+                dict(policy=pol, want_slot=True,
+                     n_active=(small[4] < 1e29).sum(dim=1).to(torch.int32))))
+    return out
+
+
 def _fcfs_check(label: str, got, want) -> None:
     for part, g, w in zip(("counts", "latencies", "start times",
                            "final carries", "dispatch trace",
@@ -842,7 +982,20 @@ def simulator_phase() -> int:
                     "times, carries, traces and telemetry counters equal bit "
                     "for bit; the identity policy equals the cold flavour bit "
                     "for bit")
-    return lanes + n
+    picks = _fcfs_pick_cases()
+    n_pick = 0
+    for label, (arr, svc, tos, prio, free0, qos_t), kw in picks:
+        got = ops.fcfs_scan(arr, svc, tos, prio, free0, qos_t, want_lat=True,
+                            want_start=True, **kw)
+        want = fcfs_scan_ref(arr, svc, tos, prio, free0, qos_t, FCFS_BIG,
+                             want_lat=True, want_start=True, **kw)
+        torch.cuda.synchronize()
+        _fcfs_check(label, got, want)
+        n_pick += got.counts.numel()
+    phase("kernel", f"fcfs_scan vs plain, pick cases: {len(picks)} cases "
+                    f"({'; '.join(c[0] for c in picks)}), {n_pick} lanes: "
+                    "equal bit for bit")
+    return lanes + n + n_pick
 
 
 # C-F2: bf16 inputs the tensor-core kernels cannot read in place, padded or
@@ -1675,36 +1828,44 @@ def ssd_line(launches: int, by_path: dict, by_dtype: dict,
                 "eager_plain_ms", "flops", "bytes")}}
 
 
-def _fcfs_flavour_times(arr, svc, tos, prio, free0, qos_t) -> dict:
-    """Each flavour of fcfs_scan at the batch lane's shape, kernel and plain
-    version, device-only (CUDA graph) and eager, with its bound: cold
-    (latencies written, the batch lane), policy (from_order with affinity
+def fcfs_flavour_calls(tos, free0) -> dict:
+    """fcfs_scan's flavours as the timing cases call them, name ->
+    (type_of_slot, keyword arguments): cold (latencies written, the batch
+    lane's call before it took counts), policy (from_order with affinity
     40 and hedge 0.5, latencies written), telemetry (the counters, no
     latencies: the grid lane's qos with telemetry) and trace (latencies,
     start times and winning slots: segment_from's call)."""
-    n_w, nq = arr.shape
-    n_b, n_s = tos.shape
-    n_types = svc.shape[1]
     mixed = RoutingPolicy.from_order([2, 0, 1], affinity=40.0, hedge=0.5)
     tos_p, pol = _policy_ops(mixed, tos)
     n_active = (free0 < 1e29).sum(dim=1).to(torch.int32)
+    return {"cold": (tos, dict(want_lat=True)),
+            "policy": (tos_p, dict(want_lat=True, policy=pol)),
+            "telemetry": (tos, dict(n_active=n_active)),
+            "trace": (tos, dict(want_lat=True, want_start=True,
+                                want_slot=True))}
+
+
+def _fcfs_flavour_times(arr, svc, tos, prio, free0, qos_t) -> dict:
+    """Each flavour of fcfs_scan (``fcfs_flavour_calls``) at the batch
+    lane's shape, kernel and plain version, device-only (CUDA graph) and
+    eager, with its bound."""
+    n_w, nq = arr.shape
+    n_b, n_s = tos.shape
+    n_types = svc.shape[1]
     lane_q = n_w * n_b * nq
-    flavours = {
-        # kw, extra bytes beyond the cold inputs and counts, ops per slot
-        # and per query-lane beyond them
-        "cold": (dict(want_lat=True), 4 * lane_q, 3 * n_s + 3),
-        "policy": (dict(want_lat=True, policy=pol),
-                   4 * lane_q + 4 * n_b * (n_s + 2), 7 * n_s + 3),
-        "telemetry": (dict(n_active=n_active),
-                      4 * n_b + 4 * n_w * n_b * tel_width(n_types),
+    work = {
+        # extra bytes beyond the cold inputs and counts, ops per slot and
+        # per query-lane beyond them
+        "cold": (4 * lane_q, 3 * n_s + 3),
+        "policy": (4 * lane_q + 4 * n_b * (n_s + 2), 7 * n_s + 3),
+        "telemetry": (4 * n_b + 4 * n_w * n_b * tel_width(n_types),
                       4 * n_s + 2 * 31 + 9),
-        "trace": (dict(want_lat=True, want_start=True, want_slot=True),
-                  12 * lane_q, 3 * n_s + 3)}
+        "trace": (12 * lane_q, 3 * n_s + 3)}
     base_bytes = 4 * (arr.numel() + svc.numel() + tos.numel() + prio.numel()
                       + free0.numel() + n_w * n_b * (1 + n_s))
     out = {}
-    for name, (kw, extra, per_step) in flavours.items():
-        t = tos_p if "policy" in kw else tos
+    for name, (t, kw) in fcfs_flavour_calls(tos, free0).items():
+        extra, per_step = work[name]
 
         def kernel(kw=kw, t=t):
             return ops.fcfs_scan(arr, svc, t, prio, free0, qos_t, **kw)
@@ -1716,8 +1877,9 @@ def _fcfs_flavour_times(arr, svc, tos, prio, free0, qos_t) -> dict:
         _fcfs_check(f"{name} timing case", kernel(), plain())
         nbytes, n_ops = base_bytes + extra, lane_q * per_step
         by_ops, by_bytes = n_ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-        out[name] = {"ms": graph_ms(kernel, 20, 5),
-                     "eager_ms": event_ms(kernel, 50),
+        ms = graph_ms(kernel, 20, 5)
+        out[name] = {"ms": ms, "eager_ms": event_ms(kernel, 50),
+                     "ns_per_query": ms * 1e6 / nq,
                      "plain_ms": graph_ms(plain, 1, 2),
                      "eager_plain_ms": event_ms(plain, 2),
                      "bound_ms": max(by_ops, by_bytes) * 1e3,
@@ -1733,8 +1895,10 @@ def fcfs_line(launches: int, lanes: int, by_path: dict,
     (the grid lane's counts); each flavour's times and bound there
     (``_fcfs_flavour_times``) beside its launches on the load-change path.
     Also one batch-lane dispatch of the simulator end to end (host clock:
-    slot layouts up, the kernel, latencies down, the host's mean) on the
-    card and on the CPU.  No single PyTorch call computes the scan:
+    slot layouts up, the kernel, the QoS counts down) on the card and on
+    the CPU.  Prints each flavour's times beside its times before the
+    redesign (``FCFS_BEFORE_MS``, in the text lines only), with the card's
+    name and power limit.  No single PyTorch call computes the scan:
     library null."""
     _, (arr, svc, tos, prio, free0, qos_t) = _fcfs_cases()[0]
     n_w, nq = arr.shape
@@ -1756,6 +1920,18 @@ def fcfs_line(launches: int, lanes: int, by_path: dict,
             sim.qos(cfgs)
             spans.append(time.perf_counter() - t0)
         host[device] = float(np.median(spans)) * 1e3
+    for name, f in flavours.items():
+        before_ms, before_eager_ms = FCFS_BEFORE_MS[name]
+        phase("fcfs", f"{name}: device-only {f['ms']:.4f} ms (before the "
+                      f"redesign: {before_ms}, {BEFORE_CARD}), eager "
+                      f"{f['eager_ms']:.4f} ms (before: {before_eager_ms}), "
+                      f"{f['ns_per_query']:.1f} ns a query, bound "
+                      f"{f['bound_ms']:.6f} ms ({f['bound_by']}); "
+                      f"on {CARD['smi']}")
+    phase("fcfs", f"one 64-pool batch dispatch end to end (host clock): "
+                  f"{host['cuda']:.4f} ms on the card (before the redesign: "
+                  f"{FCFS_BEFORE_DISPATCH_MS}, {BEFORE_CARD}), "
+                  f"{host['cpu']:.2f} ms on the CPU; on {CARD['smi']}")
     ms = cold["ms"]
     return {"name": "fcfs_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/fcfs_scan.cu",
@@ -1765,10 +1941,16 @@ def fcfs_line(launches: int, lanes: int, by_path: dict,
                              "_simulate_scan_policy :572, "
                              "_grid_lane_qos_counts_tel :503)",
             "design": "a warp per lane (workload row, pool), the slots' "
-                      "carry in registers, a 5-round shuffle argmin on "
-                      "(key, slot) per query, arrivals and service tiles "
-                      "in shared memory; policy, telemetry and trace as "
+                      "carry in registers; a query's slot picked by one "
+                      "redux.min over order-preserving key images and "
+                      "equality ballots, the owner's record kept by "
+                      "predicated shared-memory stores; latencies, counts, "
+                      "outputs and telemetry once a chunk, 32 queries at a "
+                      "time; the next query's arrival, service times and "
+                      "routed idle keys a step ahead; a cp.async double "
+                      "buffer a warp; policy, telemetry and trace as "
                       "template flavours",
+            "card": CARD["smi"],
             "launches": launches, "launches_by_path": by_path,
             "max_abs_err": 0.0, "lanes_checked": lanes,
             "ms": ms, "plain_ms": cold["plain_ms"],
@@ -1781,7 +1963,8 @@ def fcfs_line(launches: int, lanes: int, by_path: dict,
             "lanes_per_s": n_w * n_b / ms * 1e3,
             "plain_lanes_per_s": n_w * n_b / cold["plain_ms"] * 1e3,
             "dispatch_host_ms": host["cuda"], "dispatch_host_ms_cpu":
-            host["cpu"], "ops": cold["ops"], "bytes": cold["bytes"],
+            host["cpu"],
+            "ops": cold["ops"], "bytes": cold["bytes"],
             "flavours": flavours,
             "shape": f"W {n_w}, B {n_b}, nq {nq}, S {n_s}, 3 types, "
                      "latencies written"}

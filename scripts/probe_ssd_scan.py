@@ -43,24 +43,14 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.ref import ssd_scan_ref  # noqa: E402
 
-_LOADED: list[Path] = []
-
-
 def load(path: Path, symbol: str, argtypes):
-    """Build ``path`` with the repository's nvcc flags (beside the
-    repository's libraries) and return its ``symbol``."""
-    out = _build.BUILD_DIR / "variants" / f"lib{symbol}-{len(_LOADED)}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    _LOADED.append(out)
-    log = subprocess.run(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
-         str(out), str(path)], capture_output=True, text=True)
+    """Build ``path`` as the repository's kernels are built and return its
+    ``symbol``."""
+    lib, log = _build.build_variants([path])[path.name]
     print(f"{path}: " + " | ".join(
-        ln.strip() for ln in (log.stdout + log.stderr).splitlines()
-        if "registers" in ln or "spill" in ln or "error" in ln))
-    if log.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {path}")
-    fn = getattr(ctypes.CDLL(str(out)), symbol)
+        ln.strip() for ln in log.splitlines()
+        if "registers" in ln or "spill" in ln))
+    fn = getattr(lib, symbol)
     fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
     return fn
 

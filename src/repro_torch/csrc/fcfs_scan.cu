@@ -14,43 +14,60 @@
 //   start  = max(a, free[s*]);  finish = start + service[type[s*], q]
 //   free[s*] = finish;  latency = finish - a;  count += latency <= qos_t
 //
-// Design: one warp per lane.  Lane thread l keeps slots l, l + 32, ... of
-// the carry (next-free times, idle keys, slot types) in registers.  Each
-// step takes a thread-local first minimum, then a 5-round butterfly of
-// shuffles on (key, slot index) ordered lexicographically, which is the
-// first-index tie rule of jnp.argmin; the thread that owns the winning slot
-// updates its register, counts the query and writes its latency and start
-// time when asked.  The warps of a block serve configs of one workload row
-// and share its arrivals and its (n_types, chunk) service tile, staged in
-// shared memory by coalesced loads chunk by chunk.  Each thread reads the
-// service time of its local candidate before the shuffles, so the owner's
-// update waits on no memory.
+// Design: one warp per lane.  Thread l keeps slots s = k * 32 + l, k < K
+// (K the least power of two >= ceil(n_s / 32)), of the carry (next-free
+// times and slot types) in registers.  A step is the serial chain, and
+// only what the carry feeds is on it:
+//
+//  * each held slot's key as an order-preserving unsigned image (x < y iff
+//    image(x) < image(y); -0 and +0 one image, as under IEEE <): an idle
+//    slot's image is precomputed (cold: of priority - big; routed: built a
+//    step ahead, since the carry does not feed it), a busy one's is built
+//    from its next-free time;
+//  * one __reduce_min_sync over the warp, then K equality ballots: the
+//    winner is the lowest set bit of the first nonzero one.  As s = k * 32
+//    + l, that is the first index of the minimum, jnp.argmin's tie rule;
+//  * the owner updates its register and records the query's finish (and
+//    start and slot when asked) in shared memory, each one predicated
+//    store, so no branch and no reconvergence is on the chain.
+//
+// Everything else runs once a chunk of up to 256 queries, the warp's 32
+// threads taking the chunk's records 32 at a time: latencies, QoS counts,
+// the outputs asked for (coalesced), and the telemetry counters.  The next
+// query's arrival and, for K <= 4 or a routed scan, each held slot's
+// service time are read from shared memory a step ahead (for K >= 8 the
+// cold flavours read the winner's after the pick: K reads a step would
+// cost more than one on the chain).  Each warp stages its own arrivals and
+// service rows, chunk by chunk, into a double buffer of shared memory with
+// cp.async, so no warp waits on another.  The cold step loop is unrolled
+// 4 times for K <= 4, where that spills nothing.
+//
+// The cold flavour's busy image: when every arrival of the chunk is >= 0,
+// every busy key is a positive next-free time (> a), whose bits with the
+// top bit set are its image (one instruction).  Else the general image.
+// The choice is made once a chunk, not once a step: a branch a step (to a
+// pick from the idle ballots alone, say) costs more on this card than the
+// reduction it would save.
 //
 // Bound: the serial chain.  The bytes are a few hundred KB at the search
 // path's shapes (arrivals, service table, latencies when asked), under a
-// microsecond at the card's memory rate; the steps of a lane are
-// dependent, nq of them, each a shuffle reduction of 5 dependent rounds.
-// The lanes run in parallel, one warp each.
+// microsecond at the card's memory rate; the nq steps of a lane are
+// dependent, each a compare, a select, a redux.min, K ballots, a first set
+// bit and the owner's max, add and select.  The lanes run in parallel, one
+// warp each.
 //
-// Flavours, each a template flag, so the cold scan (all off) compiles to
-// the code it had before they existed:
+// Flavours, each a template flag:
 //
-// POLICY (routing): every thread reads the query's service time on each
-//   of its K slots from the shared tile; an idle slot is keyed
-//   fma(affinity, svc, pref) * TIE + priority, a busy one
-//   fma(hedge, svc, free).  The reference takes the first minimum of the
-//   idle keys if any slot is idle, else of the busy keys; the butterfly
-//   runs on (busy, key, slot) in lexicographic order, which is the same
-//   pick while idle keys stay below the reference's 1e30.  The busy flag
-//   rides above the slot index in one int, so a round still shuffles two
-//   words.
-// TEL (telemetry counters): each step counts the idle slots (one
-//   __reduce_add_sync), the owner's start, service time and type are
-//   broadcast, and every thread derives the latency and the wait; the two
-//   histogram buckets are a __popc of a __ballot_sync of lane l's test
-//   against edge l; lane t keeps type t's counters and lane k bucket k's,
-//   in registers, so nothing is shared and nothing is atomic.
-// TRACE: the owner writes the winning slot of each query.
+// POLICY (routing): the reference takes the first minimum of the idle keys
+//   fma(affinity, svc, pref) * TIE + priority if any slot is idle (one
+//   __any_sync), else of the busy keys fma(hedge, svc, free); the other
+//   side is keyed 1e30 (the reference's _INF), padding above everything.
+// TEL (telemetry counters): the idle count is the __popc of the idle
+//   ballots, the queue depth's sum and peak are kept a step; the latency
+//   and wait histograms and the per-type served, misses and busy
+//   milliseconds are counted in the chunk's pass from the records, as
+//   integer shared-memory atomics (so in any order, to the same sums).
+// TRACE: the winning slot of each query is recorded and written.
 //
 // Arithmetic: every step is one IEEE compare, max, add, subtract or (the
 // routed keys, as XLA fuses them) fused multiply-add in float32
@@ -68,13 +85,15 @@
 
 namespace {
 
-constexpr int kWarps = 4;     // lanes (slot layouts) per block
-constexpr int kChunk = 256;   // queries staged in shared memory at a time
+constexpr int kWarps = 4;          // lanes (slot layouts) per block
+constexpr int kWarpFloats = 1024;  // a warp's buffer: (1 + n_types) * chunk
+constexpr int kMaxChunk = 256;     // queries staged in a buffer at most
+constexpr int kAheadK = 4;         // cold: service times a step ahead up to K 4
 constexpr unsigned kFull = 0xffffffffu;
-constexpr float kTie = 65536.0f;   // the reference's _TIE
-constexpr int kBuckets = 32;       // telemetry histogram buckets
+constexpr float kTie = 65536.0f;     // the reference's _TIE
+constexpr float kExcluded = 1e30f;   // the reference's _INF
+constexpr int kBuckets = 32;         // telemetry histogram buckets
 constexpr int kEdge0Bits = 0x38d1b717;  // float32 bits of 1e-4, edge 0
-constexpr int kBusyBit = 1 << 16;  // routed order: the busy flag above the slot
 
 struct ScanArgs {
   const float* arrivals;      // (n_w, nq)
@@ -86,6 +105,7 @@ struct ScanArgs {
   int free0_rows;
   int n_b, n_s, n_types, nq;
   float big, qos_t;
+  int chunk;                  // queries staged in a buffer
   const float* pref_slot;     // POLICY: (n_b, n_s)
   const float* affinity;      // POLICY: (n_b,)
   const float* hedge;         // POLICY: (n_b,)
@@ -98,173 +118,339 @@ struct ScanArgs {
   int32_t* tel;               // TEL: (n_w, n_b, 3 n_types + 2 kBuckets + 2)
 };
 
-__device__ __forceinline__ bool before(float k1, int i1, float k2, int i2) {
-  return k1 < k2 || (k1 == k2 && i1 < i2);
+// Order-preserving unsigned image of a float32: x < y iff image(x) <
+// image(y), and -0 and +0 map to one value.
+__device__ __forceinline__ unsigned order_bits(float x) {
+  const unsigned u = __float_as_uint(__fadd_rn(x, 0.0f));  // -0 -> +0
+  return u ^ (static_cast<unsigned>(static_cast<int>(u) >> 31) | 0x80000000u);
 }
 
-// Routed order on (busy, key, slot): tags hold busy * kBusyBit + slot.
-__device__ __forceinline__ bool before_tagged(float k1, int t1, float k2,
-                                              int t2) {
-  const int b1 = t1 >> 16, b2 = t2 >> 16;
-  return b1 < b2 || (b1 == b2 && before(k1, t1, k2, t2));
+// Index of the first nonzero vote of K (a tree of depth log2 K); ``bits``
+// gets that vote, or 0 when all are 0.
+template <int K>
+__device__ __forceinline__ int first_set(const unsigned (&m)[K],
+                                         unsigned& bits) {
+  unsigned v[K];
+  int idx[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    v[k] = m[k];
+    idx[k] = k;
+  }
+#pragma unroll
+  for (int lvl = 0; (1 << lvl) < K; ++lvl) {
+    const int s = 1 << lvl;
+#pragma unroll
+    for (int i = 0; i + s < K; i += 2 * s) {
+      const bool lo = v[i] != 0u;
+      idx[i] = lo ? idx[i] : idx[i + s];
+      v[i] = lo ? v[i] : v[i + s];
+    }
+  }
+  bits = v[0];
+  return idx[0];
+}
+
+// x[k] for a warp-uniform k, as a tree of selects of depth log2 K.
+template <int K, typename T>
+__device__ __forceinline__ T select_k(const T (&x)[K], int k) {
+  T v[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) v[i] = x[i];
+#pragma unroll
+  for (int lvl = 0; (1 << lvl) < K; ++lvl) {
+    const int s = 1 << lvl;
+#pragma unroll
+    for (int i = 0; i + s < K; i += 2 * s) v[i] = (k & s) ? v[i + s] : v[i];
+  }
+  return v[0];
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A 32-bit store to shared memory by the threads where ``pred`` holds, as
+// one predicated instruction: no branch, so no reconvergence, around it.
+__device__ __forceinline__ void st_shared_if(bool pred, void* addr,
+                                             unsigned v) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(addr));
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %0, 0;\n\t"
+      "@q st.shared.b32 [%1], %2;\n\t}\n" ::"r"(static_cast<unsigned>(pred)),
+      "r"(a), "r"(v)
+      : "memory");
+}
+
+// Telemetry counters a warp keeps in shared memory: the latency and wait
+// histograms, then served, QoS misses and busy milliseconds per type.
+constexpr int kTelWords = 2 * kBuckets + 3 * 32;
+
+// Shared memory of one warp, in 4-byte words: the double buffer of the
+// chunk's arrivals and service rows, then the chunk's per-query records
+// (finish, start, slot) and, with TEL, the counters.
+__host__ __device__ constexpr int warp_words(int n_types, int chunk,
+                                             bool tel) {
+  return 2 * (1 + n_types) * chunk + 3 * chunk + (tel ? kTelWords : 0);
+}
+
+// Number of histogram edges 1e-4 * 2^k, k < 31, at or below x: for x >= 1e-4
+// the float's bits order as integers and each edge adds one to the exponent.
+__device__ __forceinline__ int bucket(float x) {
+  const int d = (__float_as_int(x) - kEdge0Bits) >> 23;
+  return x >= __int_as_float(kEdge0Bits) ? min(d + 1, kBuckets - 1) : 0;
 }
 
 // grid (ceil(n_b / kWarps), n_w); block kWarps * 32 threads; dynamic shared
-// memory (1 + n_types) * kChunk floats.  K = slots per thread, the least
-// power of two >= ceil(n_s / 32).
+// memory kWarps * warp_words(n_types, chunk, TEL) words, at most
+// 4 * (2 * 1024 + 3 * 256 + 160) * 4 = 47,616 bytes: under the 48 KB a
+// launch gets without opting in.
 template <int K, bool POLICY, bool TEL, bool TRACE>
 __global__ void __launch_bounds__(kWarps * 32)
 fcfs_scan_kernel(const ScanArgs p) {
   extern __shared__ float smem[];
-  float* s_arr = smem;
-  float* s_svc = smem + kChunk;
-  const int w = blockIdx.y;
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int n_b = p.n_b, n_s = p.n_s, n_types = p.n_types, nq = p.nq;
-  const bool live = b < n_b;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWarps + warp;
+  const int w = blockIdx.y;
+  if (b >= p.n_b) return;  // warps share nothing: no block barrier below
+  const int n_s = p.n_s, n_types = p.n_types, nq = p.nq, ch = p.chunk;
+  const int span = (1 + n_types) * ch;  // a buffer: arrivals, a row a type
+  float* const bufs = smem + warp * warp_words(n_types, ch, TEL);
+  float* const s_fin = bufs + 2 * span;  // the chunk's records
+  float* const s_st = s_fin + ch;
+  int* const s_slot = reinterpret_cast<int*>(s_st + ch);
+  int* const s_tel = s_slot + ch;
+  // Service times a step ahead (else the winner's, read after the pick),
+  // and read early in the step (else after the pick, keeping one array).
+  constexpr bool kAhead = POLICY || K <= kAheadK;
+  constexpr bool kEarly = K <= kAheadK;
 
-  // key_idle: priority - big (cold), or priority (POLICY, where the idle
-  // key is built per query).
-  float fr[K], key_idle[K], pref[K];
+  // ukid: image of the cold idle key priority - big; prio, pref: the
+  // routed idle key's terms; padding is never idle and keyed +inf.
+  float fr[K], prio[K], pref[K];
+  unsigned ukid[K];
   int ty[K];
   const int64_t carry_row =
-      (p.free0_rows == 1 ? 0 : static_cast<int64_t>(w) * n_b) + b;
+      (p.free0_rows == 1 ? 0 : static_cast<int64_t>(w) * p.n_b) + b;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int s = k * 32 + lane;
-    if (live && s < n_s) {
+    fr[k] = INFINITY;
+    ty[k] = 0;
+    ukid[k] = ~0u;
+    prio[k] = pref[k] = 0.f;
+    if (s < n_s) {
       fr[k] = p.free0[carry_row * n_s + s];
-      key_idle[k] = POLICY ? p.priority[s] : p.priority[s] - p.big;
       ty[k] = min(max(p.type_of_slot[static_cast<int64_t>(b) * n_s + s], 0),
                   n_types - 1);
-      pref[k] = POLICY ? p.pref_slot[static_cast<int64_t>(b) * n_s + s] : 0.f;
-    } else {  // padding: never idle, keyed +inf, never owns the minimum
-      fr[k] = INFINITY;
-      key_idle[k] = INFINITY;
-      ty[k] = 0;
-      pref[k] = 0.f;
+      if (POLICY) {
+        prio[k] = p.priority[s];
+        pref[k] = p.pref_slot[static_cast<int64_t>(b) * n_s + s];
+      } else {
+        ukid[k] = order_bits(__fsub_rn(p.priority[s], p.big));
+      }
     }
   }
-  float aff = 0.f, hed = 0.f;
-  if (POLICY && live) {
-    aff = p.affinity[b];
-    hed = p.hedge[b];
-  }
-  // TEL: lane t keeps type t's counters, lane k bucket k's and edge k.
-  const int n_act = TEL && live ? p.n_active[b] : 0;
-  const float edge = __int_as_float(kEdge0Bits + (min(lane, 30) << 23));
-  int c_served = 0, c_miss = 0, c_busy = 0, c_lat = 0, c_wait = 0;
+  const float aff = POLICY ? p.affinity[b] : 0.f;
+  const float hed = POLICY ? p.hedge[b] : 0.f;
+  const unsigned u_excl = order_bits(kExcluded);
+  const int n_live = n_s - lane;  // slot k * 32 + lane is live iff k * 32 < n_live
+  const int n_act = TEL ? p.n_active[b] : 0;
   int d_sum = 0, d_peak = 0;
+  if (TEL) {
+    for (int i = lane; i < kTelWords; i += 32) s_tel[i] = 0;
+  }
 
   const float* arr_row = p.arrivals + static_cast<int64_t>(w) * nq;
   const float* svc_row =
       p.service +
       (p.service_rows == 1 ? 0 : static_cast<int64_t>(w)) * n_types * nq;
-  const int64_t out_row = (static_cast<int64_t>(w) * n_b + b) * nq;
-  int count = 0;
+  const int64_t out_row = (static_cast<int64_t>(w) * p.n_b + b) * nq;
+  const int32_t* tos_row = p.type_of_slot + static_cast<int64_t>(b) * n_s;
+  const int n_chunks = (nq + ch - 1) / ch;
+  const bool w_lat = p.lat != nullptr, w_start = p.start != nullptr;
+  const float qos_t = p.qos_t;
 
-  for (int q0 = 0; q0 < nq; q0 += kChunk) {
-    const int n = min(kChunk, nq - q0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < n; i += blockDim.x) s_arr[i] = arr_row[q0 + i];
-    for (int t = 0; t < n_types; ++t) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        s_svc[t * kChunk + i] = svc_row[static_cast<int64_t>(t) * nq + q0 + i];
-      }
+  auto stage = [&](int c) {  // chunk c into buffer c & 1
+    float* dst = bufs + (c & 1) * span;
+    const int q0 = c * ch, n = min(ch, nq - q0);
+    for (int t = 0; t <= n_types; ++t) {
+      const float* src =
+          t == 0 ? arr_row + q0 : svc_row + static_cast<int64_t>(t - 1) * nq + q0;
+      for (int i = lane; i < n; i += 32) cp_async4(dst + t * ch + i, src + i);
     }
-    __syncthreads();
-    if (!live) continue;
-    for (int qq = 0; qq < n; ++qq) {
-      const float a = s_arr[qq];
-      // Thread-local first minimum, slots in increasing index order.
-      float best = INFINITY, best_free = INFINITY, best_svc = 0.f;
-      int best_slot = INT32_MAX, best_type = 0;
+    cp_async_commit();
+  };
+  if (n_chunks > 0) stage(0);
+  if (n_chunks > 1) stage(1);
+  cp_async_wait_all();
+  __syncwarp();
+
+  float a_nx = 0.f, sv_nx[K];
+  unsigned uik[K];  // POLICY: images of the routed idle keys, a step ahead
+#pragma unroll
+  for (int k = 0; k < K; ++k) sv_nx[k] = 0.f;
+  auto fetch = [&](const float* buf, int i) {
+    a_nx = buf[i];
+    if (kAhead) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) sv_nx[k] = buf[(1 + ty[k]) * ch + i];
+    }
+  };
+  auto idle_keys = [&]() {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      uik[k] = order_bits(__fadd_rn(
+          __fmul_rn(__fmaf_rn(aff, sv_nx[k], pref[k]), kTie), prio[k]));
+  };
+  if (n_chunks > 0) {
+    fetch(bufs, 0);
+    if (POLICY) idle_keys();
+  }
+
+  // One query, the serial chain: pick the slot, update the owner's
+  // register, record finish (and start, slot) for the chunk's pass; the
+  // next query's operands come from nbuf at ni.
+  auto step = [&](bool fast, int qq, const float* cur, const float* nbuf,
+                  int ni) {
+    const float a = a_nx;
+    float sv[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) sv[k] = sv_nx[k];
+    if (kEarly) fetch(nbuf, ni);
+    bool idle[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) idle[k] = fr[k] <= a;
+    unsigned u[K];
+    if constexpr (POLICY) {
+      bool mine = false;
+#pragma unroll
+      for (int k = 0; k < K; ++k) mine = mine || idle[k];
+      const bool any = __any_sync(kFull, mine);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        u[k] = any ? (idle[k] ? uik[k] : (k * 32 < n_live ? u_excl : ~0u))
+                   : order_bits(__fmaf_rn(hed, sv[k], fr[k]));
+    } else {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        u[k] = idle[k] ? ukid[k]
+                       : (fast ? __float_as_uint(fr[k]) | 0x80000000u
+                               : order_bits(fr[k]));
+    }
+    unsigned v[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = u[k];
+#pragma unroll
+    for (int lvl = 0; (1 << lvl) < K; ++lvl) {
+      const int s = 1 << lvl;
+#pragma unroll
+      for (int i = 0; i + s < K; i += 2 * s) v[i] = min(v[i], v[i + s]);
+    }
+    const unsigned lo = __reduce_min_sync(kFull, v[0]);
+    unsigned e[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) e[k] = __ballot_sync(kFull, u[k] == lo);
+    unsigned bits;
+    const int kw = first_set(e, bits);
+    const int lw = __ffs(bits) - 1;
+    const bool own = lane == lw;
+    const float st = fmaxf(a, select_k(fr, kw));
+    const float svw =
+        kAhead ? select_k(sv, kw) : cur[(1 + select_k(ty, kw)) * ch + qq];
+    const float finish = __fadd_rn(st, svw);
+#pragma unroll
+    for (int k = 0; k < K; ++k) fr[k] = own && k == kw ? finish : fr[k];
+    st_shared_if(own, s_fin + qq, __float_as_uint(finish));
+    if (TEL) {
+      st_shared_if(own, s_st + qq, __float_as_uint(st));
+    } else {
+      st_shared_if(own && w_start, s_st + qq, __float_as_uint(st));
+    }
+    if (TEL || TRACE) st_shared_if(own, s_slot + qq, kw * 32 + lw);
+    if constexpr (TEL) {
       int n_idle = 0;
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int s = k * 32 + lane;
-        const bool idle = fr[k] <= a;
-        if (TEL) n_idle += idle;
-        if constexpr (POLICY) {
-          const float sv = s_svc[ty[k] * kChunk + qq];
-          const float key =
-              idle ? __fadd_rn(__fmul_rn(__fmaf_rn(aff, sv, pref[k]), kTie),
-                               key_idle[k])
-                   : __fmaf_rn(hed, sv, fr[k]);
-          const int tag = (idle ? 0 : kBusyBit) | s;
-          if (before_tagged(key, tag, best, best_slot)) {
-            best = key;
-            best_slot = tag;
-            best_free = fr[k];
-            best_type = ty[k];
-            best_svc = sv;
-          }
-        } else {
-          const float key = idle ? key_idle[k] : fr[k];
-          if (before(key, s, best, best_slot)) {
-            best = key;
-            best_slot = s;
-            best_free = fr[k];
-            best_type = ty[k];
-          }
-        }
-      }
-      const float svc = POLICY ? best_svc : s_svc[best_type * kChunk + qq];
-      // Warp-wide first minimum: every lane ends with the same winner.
-      float win = best;
-      int win_slot = best_slot;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float other = __shfl_xor_sync(kFull, win, off);
-        const int other_slot = __shfl_xor_sync(kFull, win_slot, off);
-        if (POLICY ? before_tagged(other, other_slot, win, win_slot)
-                   : before(other, other_slot, win, win_slot)) {
-          win = other;
-          win_slot = other_slot;
-        }
-      }
-      if constexpr (TEL) {
-        const int depth = n_act - __reduce_add_sync(kFull, n_idle);
-        d_sum += depth;
-        d_peak = max(d_peak, depth);
-        const int owner = win_slot & 31;
-        const float st = __shfl_sync(kFull, fmaxf(a, best_free), owner);
-        const float sv = __shfl_sync(kFull, svc, owner);
-        const int t = __shfl_sync(kFull, best_type, owner);
-        const float l = __fsub_rn(__fadd_rn(st, sv), a);
-        const float wait = fmaxf(__fsub_rn(st, a), 0.f);
-        const int lb = __popc(__ballot_sync(kFull, lane < 31 && l >= edge));
-        const int wb = __popc(__ballot_sync(kFull, lane < 31 && wait >= edge));
-        c_lat += lane == lb;
-        c_wait += lane == wb;
-        if (lane == t) {
-          ++c_served;
-          c_miss += l > p.qos_t;
-          c_busy += __float2int_rn(__fmul_rn(sv, 1000.f));
-        }
-      }
-      if (win_slot == best_slot) {  // this thread owns the winning slot
-        const float start = fmaxf(a, best_free);
-        const float finish = __fadd_rn(start, svc);
-        const int slot = POLICY ? (win_slot & (kBusyBit - 1)) : win_slot;
-        const int kk = slot >> 5;
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          if (k == kk) fr[k] = finish;
-        }
-        const float l = __fsub_rn(finish, a);
-        count += l <= p.qos_t;
-        if (p.lat != nullptr) p.lat[out_row + q0 + qq] = l;
-        if (p.start != nullptr) p.start[out_row + q0 + qq] = start;
-        if (TRACE) p.slot_out[out_row + q0 + qq] = slot;
+      for (int k = 0; k < K; ++k) n_idle += __popc(__ballot_sync(kFull, idle[k]));
+      const int depth = n_act - n_idle;
+      d_sum += depth;
+      d_peak = max(d_peak, depth);
+    }
+    if (!kEarly) fetch(nbuf, ni);
+    if (POLICY) idle_keys();
+  };
+
+  // The chunk's pass, 32 queries at a time: latencies, QoS counts, the
+  // outputs asked for (coalesced), and with TEL the counters.
+  int count = 0;
+  auto chunk_pass = [&](const float* cur, int q0, int n) {
+    __syncwarp();
+    for (int i = lane; i < n; i += 32) {
+      const float a = cur[i];
+      const float l = __fsub_rn(s_fin[i], a);
+      count += l <= qos_t;
+      const int64_t o = out_row + q0 + i;
+      if (w_lat) p.lat[o] = l;
+      if (w_start) p.start[o] = s_st[i];
+      if (TRACE) p.slot_out[o] = s_slot[i];
+      if (TEL) {
+        const int t = min(max(tos_row[s_slot[i]], 0), n_types - 1);
+        const float sv = cur[(1 + t) * ch + i];
+        atomicAdd(&s_tel[bucket(l)], 1);
+        atomicAdd(&s_tel[kBuckets + bucket(fmaxf(__fsub_rn(s_st[i], a), 0.f))],
+                  1);
+        atomicAdd(&s_tel[2 * kBuckets + t], 1);
+        if (l > qos_t) atomicAdd(&s_tel[2 * kBuckets + 32 + t], 1);
+        atomicAdd(&s_tel[2 * kBuckets + 64 + t],
+                  __float2int_rn(__fmul_rn(sv, 1000.f)));
       }
     }
+  };
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const float* cur = bufs + (c & 1) * span;
+    const float* nxt = bufs + ((c + 1) & 1) * span;
+    const int q0 = c * ch, n = min(ch, nq - q0);
+    bool fast = false;  // cold: every arrival of the chunk >= 0
+    if (!POLICY) {
+      bool ok = true;
+      for (int i = lane; i < n; i += 32) ok = ok && cur[i] >= 0.f;
+      fast = __all_sync(kFull, ok);
+    }
+    auto run = [&](bool f) {
+      if constexpr (!POLICY && K <= kAheadK) {
+#pragma unroll 4
+        for (int qq = 0; qq < n - 1; ++qq) step(f, qq, cur, cur, qq + 1);
+      } else {
+        for (int qq = 0; qq < n - 1; ++qq) step(f, qq, cur, cur, qq + 1);
+      }
+      if (c + 1 < n_chunks) {  // the next chunk, staged a chunk ago
+        cp_async_wait_all();
+        __syncwarp();
+      }
+      step(f, n - 1, cur, nxt, 0);
+    };
+    if (fast)
+      run(true);
+    else
+      run(false);
+    chunk_pass(cur, q0, n);
+    __syncwarp();  // every read of buffer c & 1 and of the records done
+    if (c + 2 < n_chunks) stage(c + 2);
   }
-  if (!live) return;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) count += __shfl_xor_sync(kFull, count, off);
-  const int64_t lane_row = static_cast<int64_t>(w) * n_b + b;
+  count = __reduce_add_sync(kFull, count);
+  const int64_t lane_row = static_cast<int64_t>(w) * p.n_b + b;
   if (lane == 0) p.counts[lane_row] = count;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -272,14 +458,15 @@ fcfs_scan_kernel(const ScanArgs p) {
     if (s < n_s) p.free_out[lane_row * n_s + s] = fr[k];
   }
   if constexpr (TEL) {
+    __syncwarp();
     int32_t* row = p.tel + lane_row * (3 * n_types + 2 * kBuckets + 2);
     if (lane < n_types) {
-      row[lane] = c_served;
-      row[n_types + lane] = c_miss;
-      row[2 * n_types + lane] = c_busy;
+      row[lane] = s_tel[2 * kBuckets + lane];
+      row[n_types + lane] = s_tel[2 * kBuckets + 32 + lane];
+      row[2 * n_types + lane] = s_tel[2 * kBuckets + 64 + lane];
     }
-    row[3 * n_types + lane] = c_lat;
-    row[3 * n_types + kBuckets + lane] = c_wait;
+    row[3 * n_types + lane] = s_tel[lane];
+    row[3 * n_types + kBuckets + lane] = s_tel[kBuckets + lane];
     if (lane == 0) {
       row[3 * n_types + 2 * kBuckets] = d_sum;
       row[3 * n_types + 2 * kBuckets + 1] = d_peak;
@@ -290,7 +477,8 @@ fcfs_scan_kernel(const ScanArgs p) {
 template <int K, bool POLICY, bool TEL, bool TRACE>
 cudaError_t launch(const ScanArgs& args, int n_w, cudaStream_t stream) {
   const dim3 grid((args.n_b + kWarps - 1) / kWarps, n_w);
-  const size_t smem = sizeof(float) * (1 + args.n_types) * kChunk;
+  const size_t smem =
+      sizeof(float) * kWarps * warp_words(args.n_types, args.chunk, TEL);
   fcfs_scan_kernel<K, POLICY, TEL, TRACE>
       <<<grid, kWarps * 32, smem, stream>>>(args);
   return cudaGetLastError();
@@ -354,6 +542,8 @@ extern "C" int fcfs_scan_forward(
   a.nq = nq;
   a.big = big;
   a.qos_t = qos_t;
+  a.chunk = kMaxChunk;
+  while ((1 + n_types) * a.chunk > kWarpFloats) a.chunk /= 2;
   a.pref_slot = static_cast<const float*>(pref_slot);
   a.affinity = static_cast<const float*>(affinity);
   a.hedge = static_cast<const float*>(hedge);

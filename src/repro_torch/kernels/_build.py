@@ -11,6 +11,7 @@ fine, and only a CUDA launch needs the library.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -54,32 +55,69 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build(names=None) -> dict[str, str]:
-    """Compile the named sources (all by default), one ``nvcc`` each, all
-    started together.  Returns each source's compiler log (``ptxas -v``:
-    registers, shared memory, spills).  Raises if any compile fails."""
-    names = sources() if names is None else list(names)
+def _compile(jobs: dict) -> dict[str, str]:
+    """``jobs``: key -> (source, library); one ``nvcc`` each, all started
+    together, each library written whole or not at all.  Returns each
+    key's compiler log.  Raises if any compile fails."""
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        out = library_path(name)
+    for key, (src, out) in jobs.items():
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
     logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
+    for key, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        logs[name] = log
+        logs[key] = log
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            failed.append(f"{key} (nvcc exit {proc.returncode}):\n{log}")
         else:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return logs
+
+
+def build(names=None) -> dict[str, str]:
+    """Compile the named sources (all by default), one ``nvcc`` each, all
+    started together.  Returns each source's compiler log (``ptxas -v``:
+    registers, shared memory, spills).  Raises if any compile fails."""
+    names = sources() if names is None else list(names)
+    return _compile({name: (CSRC / f"{name}.cu", library_path(name))
+                     for name in names})
+
+
+def build_variants(paths) -> dict[str, tuple[ctypes.CDLL, str]]:
+    """Other sources (a probe's microkernel, an uncommitted form of a
+    kernel) built as ``build`` builds the kernels, all at once, into
+    ``build/torch_kernels/variants``: file name -> (loaded library,
+    compiler log)."""
+    jobs = {}
+    for path in map(Path, paths):
+        tag = hashlib.sha1(str(path.resolve()).encode()).hexdigest()[:12]
+        jobs[path.name] = (path, BUILD_DIR / "variants" /
+                           f"lib{path.stem}-{tag}.so")
+    logs = _compile(jobs)
+    return {key: (ctypes.CDLL(str(out)), logs[key])
+            for key, (_, out) in jobs.items()}
+
+
+@contextlib.contextmanager
+def library_swapped(name: str, lib: ctypes.CDLL):
+    """Within the block, ``function(name, ...)`` resolves in ``lib`` (a
+    library from ``build_variants``), so a wrapper launches that form."""
+    saved = _LIBS.get(name)
+    _LIBS[name] = lib
+    try:
+        yield
+    finally:
+        if saved is None:
+            _LIBS.pop(name)
+        else:
+            _LIBS[name] = saved
 
 
 def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):

@@ -6,16 +6,23 @@ A kernel of the port with no Pallas counterpart: it replaces XLA's
 ``_grid_lane_qos_counts``, the routed scans ``_simulate_scan_policy`` and
 ``_grid_lane_qos_counts_policy``, and the in-carry telemetry counters
 ``_grid_lane_qos_counts_tel`` / ``..._policy_tel``).  One warp per lane
-(workload row, slot layout) with the slots' next-free times in registers, a
-shuffle argmin on (key, slot index) per query, arrivals and service tiles
-of a workload row shared through shared memory.  Bound by the serial chain
-of nq dependent shuffle reductions; the bytes are a few hundred KB.
-Bit-exact against the plain version (``ref.fcfs_scan_ref``), since every
-step is one IEEE operation in float32 (the routed keys one fused
-multiply-add each, on both sides).
+(workload row, slot layout) with the slots' next-free times in registers.
+A query's slot is picked by one ``redux.min`` over an order-preserving
+unsigned image of each slot's key and equality ballots (the lowest set bit
+of the first nonzero ballot is the first index of the minimum); the owner
+updates its register and records the query in shared memory with
+predicated stores, and the latencies, QoS counts, outputs and telemetry
+counters are computed once a chunk of queries, 32 at a time.  When a
+chunk's arrivals are all >= 0, a busy slot's image there is its next-free
+time's bits (one instruction).  The next query's arrival, service times
+and routed idle keys are read or built a step ahead; each warp stages its
+own arrivals and service rows in shared memory.  Bound by the serial chain
+of nq dependent picks; the bytes are a few hundred KB.  Bit-exact against
+the plain version (``ref.fcfs_scan_ref``), since every step is one IEEE
+operation in float32 (the routed keys one fused multiply-add each, on both
+sides) and the pick is the first index of the minimum.
 
-One launch takes any mix of these, each a template flag of the kernel, so
-the cold scan compiles to the code it had before they existed:
+One launch takes any mix of these, each a template flag of the kernel:
 
 * a routing policy (``pref_slot`` (L, S), ``affinity`` and ``hedge`` (L,));
 * the telemetry counters (``n_active`` (L,) given): per lane served, QoS

@@ -36,10 +36,11 @@ Latencies, rates, counts, carries and telemetry are the reference's bit
 for bit on the same arrays: the scan's float32 arithmetic is the same
 (the routed keys one fused multiply-add each, ROADMAP C-R18), the slot
 layout, remaps and telemetry finalisation are the same numpy code, and the
-rates are the same host float64 mean (single and batch lanes) or the same
-device counts against the float32 threshold (``_qos_threshold_f32``, grid
-lane).  All-zero configs serve nothing: +inf latencies, rate 0, zero
-telemetry.
+rates are the same host float64 mean (the single lane and the warm batch
+lane) or the same device counts against the float32 threshold
+(``_qos_threshold_f32``: the cold batch lane and the grid lane, which copy
+no latencies to the host), equal to that mean bit for bit.  All-zero
+configs serve nothing: +inf latencies, rate 0, zero telemetry.
 
 Not ported yet, refused with ``NotImplementedError`` naming its ROADMAP
 item: the streaming simulator (A-10).  The reference's deprecated aliases
@@ -489,10 +490,11 @@ class PoolSimulator:
             service_tables=None, policy=None, deployed=None, now=None,
             warmup=None, telemetry: bool = False) -> QosResult:
         """QoS satisfaction rates (paper Eq. 2 R_sat) on ``simulate``'s
-        lanes: the single and batch lanes take the host float64 mean of
-        ``lat <= qos_latency``; the grid lane counts on the device against
-        the float32 threshold, and only (W, [P·]B) counts (and, with
-        ``telemetry``, the counters) cross to the host.  ``states=`` is the
+        lanes: the single lane and the warm batch lane take the host
+        float64 mean of ``lat <= qos_latency``; the cold batch lane and the
+        grid lane count on the device against the float32 threshold, and
+        only ([W,] [P·]B) counts (and, with ``telemetry``, the counters)
+        cross to the host, equal to that mean bit for bit.  ``states=`` is the
         grid's per-workload-row warm start: one entry per row, ``None``
         (cold) or a ``(PoolState, deployed_config)`` pair."""
         policy = self._check_policy(policy)
@@ -544,9 +546,10 @@ class PoolSimulator:
                                                     telemetry)
             return QosResult(rates=np.mean(lat <= qos, axis=-1),
                              state=states, telemetry=tel)
-        lat, tel = self._sim_batch(cfg, policy, telemetry)
-        return QosResult(rates=np.mean(lat <= qos, axis=-1), state=None,
-                         telemetry=tel)
+        rates, tel = self._qos_grid(cfg, [1.0], None, policy, None, None,
+                                    None, None, telemetry)
+        return QosResult(rates=rates[0], state=None,
+                         telemetry=tel[0] if telemetry else None)
 
     def tail_latency(self, config, pct: float = 99.0, *, state=None,
                      policy=None) -> float:

@@ -1,7 +1,8 @@
 """The kernel build names each library by a digest of what it is built
 from: its source, the shared headers in ``csrc`` and the compiler flags.
 An edited header must give a new library path, or a stale library that
-was built against the old header would be loaded."""
+was built against the old header would be loaded.  A probe may route a
+kernel's wrapper to another build of it for a block, and no longer."""
 
 import pytest
 
@@ -52,3 +53,23 @@ def test_repo_headers_are_in_the_digest():
     for name in ("flash_attention", "decode_attention"):
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert '#include "bf16_mma.cuh"' in text
+
+
+@pytest.mark.parametrize("loaded", [False, True])
+def test_library_swapped_routes_function_and_restores(monkeypatch, loaded):
+    """A probe times another form of a kernel through its wrapper: inside
+    the block ``function`` resolves in the other library; after it, even
+    when the block raises, the loaded library (or none) is back."""
+    from types import SimpleNamespace
+
+    monkeypatch.setattr(_build, "_LIBS", {})
+    mine = SimpleNamespace(f=SimpleNamespace())
+    other = SimpleNamespace(f=SimpleNamespace())
+    if loaded:
+        _build._LIBS["kern"] = mine
+    with pytest.raises(RuntimeError):
+        with _build.library_swapped("kern", other):
+            assert _build.function("kern", "f", [int]) is other.f
+            assert other.f.argtypes == [int]
+            raise RuntimeError("a failed check inside the block")
+    assert _build._LIBS == ({"kern": mine} if loaded else {})

@@ -7,10 +7,12 @@ numpy) go through both simulators.  Every comparison is bit for bit:
 latencies, waits, QoS rates and counts, slot layouts, thresholds and
 service tables.  The scan's float32 arithmetic is the same step for step,
 the slot layout and the tables are the same numpy code, and the rates are
-the same float64 mean (single and batch lanes) or the same device counts
-(grid lane).  The CUDA kernel is held to the same plain version on the
-card by ``chip_smoke.py``.
+the same float64 mean (the single lane) or the same device counts (the
+batch and grid lanes).  The CUDA kernel is held to the same plain version
+on the card by ``chip_smoke.py``.
 """
+
+import warnings
 
 import jax
 import numpy as np
@@ -170,6 +172,93 @@ def test_batch_lane_bit_identical(setups, model):
     # row i of the batch is the single lane on configs[i]
     for i in (1, 7):
         _equal(lat[i], tsim_.simulate(cfgs[i]).lat)
+
+
+@pytest.fixture(scope="module")
+def paper_sims():
+    """The port's own ``make_paper_setup`` simulator per paper model (its
+    threefry stream from seed 0), on the CPU."""
+    from repro_torch.serving.pool import make_paper_setup
+    return {m: make_paper_setup(m, device=CPU)[0].sim for m in MODELS}
+
+
+def _spy_want_lat(monkeypatch):
+    """Record ``want_lat`` of every ``ops.fcfs_scan`` call the simulator
+    makes."""
+    asked = []
+    real = ops.fcfs_scan
+
+    def spy(*args, **kwargs):
+        asked.append(kwargs.get("want_lat", False))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tsim.ops, "fcfs_scan", spy)
+    return asked
+
+
+def _host_rates(sim, cfgs, **kw):
+    """The host float64 mean of the batch lane's latencies within the QoS
+    latency: what the batch lane's rates were before they came from the
+    scan's counts."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)   # empty stream: 0/0
+        return np.mean(sim.simulate(cfgs, **kw).lat <= sim.model.qos_latency,
+                       axis=-1)
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_batch_lane_rates_from_device_counts(paper_sims, model, monkeypatch):
+    """The cold batch lane's rates come from the scan's QoS counts against
+    the float32 threshold, with no latencies asked of the scan, and equal
+    (==) the host mean of its latencies: all-zero rows 0, a stacked policy
+    (P, B), telemetry on."""
+    sim = paper_sims[model]
+    cfgs = _configs(model, 24, seed=3)
+    want = _host_rates(sim, cfgs)
+    prices = tuple(t.price for t in sim.types)
+    stacked = troute.RoutingPolicy.stack(
+        [troute.named_policy(n, prices) for n in troute.NAMED_POLICIES])
+    want_p = _host_rates(sim, cfgs, policy=stacked)
+    want_tel = sim.simulate(cfgs, telemetry=True).telemetry
+    asked = _spy_want_lat(monkeypatch)
+    got = sim.qos(cfgs).rates
+    got_p = sim.qos(cfgs, policy=stacked).rates
+    got_tel = sim.qos(cfgs, telemetry=True)
+    assert asked == [False, False, False]
+    for g, w in ((got, want), (got_p, want_p), (got_tel.rates, want)):
+        assert g.dtype == np.float64 and g.shape == w.shape
+        assert (g == w).all()
+    assert got.shape == (24,) and got_p.shape == (4, 24)
+    assert got[0] == 0.0 and (got_p[:, 0] == 0.0).all()
+    assert 0.0 < got.max() and got.min() < 1.0   # rates of every kind
+    for field in ("served", "miss", "busy_ms", "lat_hist", "wait_hist",
+                  "depth_sum", "depth_peak"):
+        _equal(getattr(got_tel.telemetry, field), getattr(want_tel, field))
+
+
+def test_batch_lane_rates_on_an_empty_stream_and_batch(paper_sims,
+                                                       monkeypatch):
+    """An empty stream gives what the host mean gave (0/0: NaN per row),
+    an empty batch an empty array, and neither dispatches."""
+    sim = paper_sims["dien"]
+    empty = twl.Workload(arrivals=np.zeros(0), batches=np.zeros(0, np.int64),
+                         rate_qps=1.0)
+    es = tsim.PoolSimulator(sim.model, sim.types, empty, device=CPU)
+    cfgs = np.asarray([(1, 0, 0), (0, 0, 0), (0, 2, 1)])
+    prices = tuple(t.price for t in sim.types)
+    stacked = troute.RoutingPolicy.stack(
+        [troute.named_policy(n, prices) for n in ("fcfs", "hedged")])
+    asked = _spy_want_lat(monkeypatch)
+    for s, c, kw in ((es, cfgs, {}), (es, cfgs, dict(policy=stacked)),
+                     (sim, cfgs[:0], {}), (es, cfgs[:0], {}),
+                     (sim, cfgs[:0], dict(policy=stacked))):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            got = s.qos(c, **kw).rates
+        np.testing.assert_array_equal(got, _host_rates(s, c, **kw))
+        assert got.shape == _host_rates(s, c, **kw).shape
+        assert np.isnan(got).all() if s is es and c.size else got.size == 0
+    assert asked == [] and es.n_dispatches == 0
 
 
 @pytest.mark.parametrize("model", ["mtwnd", "candle"])

@@ -5,7 +5,8 @@
 Drives the port (``src/repro_torch``) on its main paths: the MT-WND
 serving pool at full width, RIBBON's own search over the FCFS pool
 simulator for the paper's five models, its load-change adaptation (paper
-§5.5) over the simulator's warm, routed and telemetry lanes, and the
+§5.5) over the simulator's warm, routed and telemetry lanes, a streamed
+million-query evaluation, the scenario engine's episodes, and the
 serving paths of three LMs
 at full width and depth (qwen2.5-3b, dense GQA; mamba2-130m, Mamba-2 SSM;
 zamba2-2.7b, Mamba-2 with a shared attention block), in phases that each
@@ -51,7 +52,12 @@ print a line and raise on failure:
    every slot idle, a busy minimum tied on slots 7 and 37, routed keys
    negative, -0 and +0, S 40, 130 and 1024, a non-ascending or collapsed
    priority, negative arrivals with a busy key under an idle one), cold
-   and with the trace and counters on; and the bf16 attention and
+   and with the trace and counters on; then its stream flavour bit for
+   bit (final carry and count) on chunks of mtwnd's stream: cold, chained
+   from a carry, the 10,000-query stream's partial last chunk, a rebase's
+   shift, a bucketed table, S 8, 40 and 1024, batch rows outside the
+   table (clamped), and StreamingSimulator's empty pool and empty stream
+   on the card (no launch); and the bf16 attention and
    SSD-scan kernels on inputs they cannot read in place
    (ROADMAP C-F2: flash and decode attention at D 36 and D 100, ssd_scan
    at P 50, N 20, and views offset by one element), padded or copied by
@@ -81,6 +87,12 @@ print a line and raise on failure:
    load_factors=[1.0, 1.5], warm_state=..., deployed=base,
    policy=...)``), the base and new pools' warm telemetry under both loads
    and ``tail_latency(base, 99)``; the BO's GP on the host in both runs;
+7c. streaming: ``StreamingSimulator`` on mtwnd's (2, 3, 3) at 800 qps in
+   chunks of 4096, 10,000 queries on the card and on the CPU (equal,
+   0.9821), 1,000,000 on the card (981,041 within QoS, no rebase, one
+   stream launch a chunk: 245 and no other launch; the host-clock time
+   and its share spent making chunks printed), and (1, 0, 0) at 0.05 qps
+   over 3 x 4096 + 100 queries on card and CPU (1.0, 4 rebases);
 8. LM serving, for each of the three LMs, with random weights from a seed:
    4 requests (2000 prompt tokens, max_len 2048 for qwen2.5-3b; 2048 and
    2096 for the SSM and hybrid LMs, so their plain path runs the
@@ -93,7 +105,13 @@ print a line and raise on failure:
    tokens, and each bf16 path's agreement with the fp32 kernel path's
    tokens (printed); then device-only prefill and decode-step times from
    CUDA graphs.  For the SSM and hybrid LMs the fp32 gate widens by the
-   plain path's own distance from a run whose scan is float64.
+   plain path's own distance from a run whose scan is float64;
+9. the scenario engine (``repro_torch.scenario``) over mtwnd's simulator
+   plane, the engine's GP on the host: diurnal-day at n 2000 / window
+   400, spot-churn and tier-outage (the tiered plane: ``serving/fault.py``
+   and ``serving/tiers.py``) at n 500, on the card and on the CPU, equal
+   reports at their anchors; then diurnal-day at full size (1,000,000
+   queries, ``stream_chunk`` 4096) on the card at its anchors.
 
 Launch counts are set to 0 just before phase 5 and read after phase 6
 (every MT-WND forward makes one embedding-bag launch for its 8 tables),
@@ -101,7 +119,10 @@ set to 0 again just before phase 7 and read after it (one fcfs_scan
 launch per simulator dispatch, and no other kernel), again just before
 phase 7b and read after it (one fcfs_scan launch per simulator dispatch,
 each of the cold, policy, telemetry and trace flavours launched, and no
-other kernel), and set to 0 again
+other kernel), again just before phase 7c and read after it (one
+stream-flavour launch per chunk, and no other launch), again just before
+phase 9 and read after it (one fcfs_scan launch per plane dispatch,
+printed by flavour, and no other kernel), and set to 0 again
 just before each LM's serving runs and read just after
 them (qwen2.5-3b: one flash-attention launch per layer per prefill and one
 decode-attention launch per layer per step; mamba2-130m: one SSD-scan
@@ -117,8 +138,9 @@ bound (bytes over the card's memory rate or operations over its rate for
 their type, bf16 tensor or fp32, whichever is larger); for fcfs_scan also
 each flavour's times beside its times before the redesign, ns a query,
 bound and launches on the
-load-change path, and one batch dispatch's host time, printed with the
-card's name and power limit.  The last line is
+load-change and scenario paths, the stream flavour's at a streamed
+chunk's shape with its launches on the streaming path, and one batch
+dispatch's host time, printed with the card's name and power limit.  The last line is
 ``{"ok": true, "device": {...}}``.  Float32 matrix products and
 convolutions run in full float32 (TF32 off), as the JAX reference
 computes.  Exits non-zero, with no result line, without a card or outside
@@ -154,8 +176,8 @@ from repro_torch.kernels.fcfs_scan import (FLAVOURS,  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
                                      embedding_bag_ref, fcfs_scan_ref,
-                                     flash_attention_ref, per_head,
-                                     ssd_scan_ref)
+                                     fcfs_stream_ref, flash_attention_ref,
+                                     per_head, ssd_scan_ref)
 from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
@@ -165,18 +187,24 @@ from repro_torch.models.paper_models import (MTWND_PRESETS,  # noqa: E402
                                              make_random_batch, mtwnd_apply,
                                              mtwnd_init)
 from repro_torch.serving.engine import DEFAULT_CELLS, ClusterEngine  # noqa: E402
+from repro_torch.scenario import (ScenarioEngine,  # noqa: E402
+                                  build_episode, paper_simulator_plane,
+                                  tiered_simulator_plane)
 from repro_torch.serving.instance import (AWS_INSTANCES,  # noqa: E402
                                           MODEL_PROFILES, PAPER_POOLS,
-                                          service_table_for)
+                                          bucketed_service_time_lut,
+                                          service_table_for,
+                                          service_time_lut)
 from repro_torch.serving.autoscaler import LoadMonitor, rescale  # noqa: E402
 from repro_torch.serving.pool import (PoolEvaluator,  # noqa: E402
                                       best_homogeneous, make_paper_setup,
+                                      paper_bucketed_spec, paper_spec,
                                       paper_workload)
 from repro_torch.serving.routing import (NAMED_POLICIES,  # noqa: E402
                                          RoutingPolicy, named_policy)
-from repro_torch.serving.simulator import (_cold_free0,  # noqa: E402
-                                           _expand_slots, _fold_policy,
-                                           _qos_threshold_f32)
+from repro_torch.serving.simulator import (StreamingSimulator,  # noqa: E402
+                                           _cold_free0, _expand_slots,
+                                           _fold_policy, _qos_threshold_f32)
 from repro_torch.models.transformer import get_model  # noqa: E402
 from repro_torch.serving.workload import WorkloadSpec  # noqa: E402
 
@@ -304,6 +332,40 @@ BEFORE_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 CARD = {"smi": "not read"}
 
 PAPER_MODELS = ("mtwnd", "dien", "candle", "resnet50", "vgg19")
+# The streaming path's anchors: mtwnd's Table 3 pool, seed 0, 800 qps,
+# chunks of 4096; the reference's StreamingSimulator fed the port's stream
+# (jax 0.9.0, on the CPU): 981,041 of 1,000,000 within QoS, no rebase; at
+# 0.05 qps every chunk passes _MAX_HORIZON / 2, so (1, 0, 0) over
+# 3 x 4096 + 100 queries rebases 4 times.
+STREAM = dict(model="mtwnd", config=(2, 3, 3), small=10_000, small_rate=0.9821,
+              full=1_000_000, full_hits=981_041, rebase_qps=0.05,
+              rebase_config=(1, 0, 0), rebase_n=3 * 4096 + 100, rebases=4)
+# The scenario path's anchors, mtwnd: the reference's ScenarioEngine on its
+# simulator plane fed the port's streams (jax 0.9.0, on the CPU); qos,
+# cost $, BO evaluations, windows, violating windows, final pool, actions.
+# tier-outage takes 111 evaluations in the port where the reference takes
+# 110: a recovery's sequential ask meets an EI near-tie (ROADMAP C-R20);
+# every other field is the reference's.
+SCENARIOS = {
+    "diurnal-day-small": dict(
+        episode="diurnal-day", kw=dict(n=2000, window=400), tiered=False,
+        anchor=(0.9984, 0.013242827912236889, 25, 25, 0, (6, 0, 1), ())),
+    "spot-churn": dict(
+        episode="spot-churn", kw=dict(n=500), tiered=False,
+        anchor=(0.8813333333333333, 0.001196530202707541, 124, 16, 3,
+                (3, 2, 0), ("recover_preemption", "rescale_up", "restock",
+                            "reprice"))),
+    "tier-outage": dict(
+        episode="tier-outage", kw=dict(n=500), tiered=True,
+        anchor=(0.9465, 0.001508470218473671, 111, 23, 2, (0, 4, 0, 0),
+                ("recover_outage", "rescale_down", "restock", "restock_trim",
+                 "reprice"))),
+}
+# Full-size diurnal-day (5 x 200,000 queries, window 20,000, stream_chunk
+# 4096) on the card: the same anchors, the cost within 1e-9 relative.
+DIURNAL_DAY = dict(queries=1_000_000, qos=0.994136,
+                   cost=1.4916108494636782, evals=62, windows=50,
+                   violating=1, final=(4, 0, 12))
 # The search path's anchor (the quickstart): mtwnd, 1500 queries, seed 0.
 ANCHOR = dict(model="mtwnd", qos_target=0.99, budget=80, start=(5, 0, 0))
 
@@ -972,7 +1034,7 @@ def simulator_phase() -> int:
     torch.cuda.synchronize()
     _fcfs_check("identity policy vs the cold flavour", routed, cold)
     ran = {f: fcfs_scan_cuda.launches_by_flavour[f] - before[f]
-           for f in FLAVOURS}
+           for f in FLAVOURS if f != "stream"}
     if not all(ran.values()):
         raise AssertionError(f"fcfs_scan flavour cases missed a flavour: "
                              f"{ran}")
@@ -996,6 +1058,128 @@ def simulator_phase() -> int:
                     f"({'; '.join(c[0] for c in picks)}), {n_pick} lanes: "
                     "equal bit for bit")
     return lanes + n + n_pick
+
+
+def _pool(model: str = "mtwnd"):
+    return MODEL_PROFILES[model], [AWS_INSTANCES[n]
+                                   for n in PAPER_POOLS[model]["diverse"]]
+
+
+def _stream_layout(config, width: int):
+    """A streamed pool's slot layout (1, width) and idle carry (1, 1,
+    width) on the card, as ``StreamingSimulator`` builds them."""
+    tos, active = _expand_slots(np.asarray([config]), len(config), width)
+    return (torch.from_numpy(np.ascontiguousarray(tos)).cuda(),
+            torch.from_numpy(np.ascontiguousarray(
+                _cold_free0(active)[None])).cuda())
+
+
+def _stream_cases():
+    """(label, operands) of the stream flavour's checks: operands
+    (arrivals (1, m), batch rows (1, m), lut, type_of_slot (1, S),
+    priority (S,), free (1, 1, S), count (1, 1), shift, qos_t) on the
+    card, from mtwnd's streams and tables (chunks of 4096)."""
+    profile, types = _pool()
+    qos_t = _qos_threshold_f32(profile.qos_latency)
+    lut = torch.from_numpy(np.ascontiguousarray(np.asarray(
+        service_time_lut(profile, types, profile.max_batch),
+        np.float32).T)).cuda()
+
+    def chunk(spec, c, base, m=None):
+        arr, local, bat = spec.generate_chunk(c, base)[:3]
+        m = len(arr) if m is None else m
+        return (arr[:m].reshape(1, m).cuda(),
+                bat[:m].to(torch.int32).reshape(1, m).cuda(), float(local[-1]))
+
+    def case(arr, rows, table, config, width, free=None, count=0, shift=0.0):
+        tos, idle = _stream_layout(config, width)
+        return (arr, rows, table, tos,
+                torch.arange(width, dtype=torch.float32, device="cuda"),
+                idle if free is None else free,
+                torch.full((1, 1), count, dtype=torch.int32, device="cuda"),
+                shift, qos_t)
+
+    spec = paper_spec("mtwnd", seed=0)
+    a0, r0, last0 = chunk(spec, 0, 0.0)
+    a1, r1, _ = chunk(spec, 1, last0)
+    a2, r2, _ = chunk(spec, 2, last0, 1808)
+    # The carry after chunk 0, for the warm cases: the plain version's.
+    base = case(a0, r0, lut, STREAM["config"], 8)
+    warm_count, warm = fcfs_stream_ref(*base[:7], 0.0, qos_t, FCFS_BIG)
+    slow = paper_spec("mtwnd", seed=0, rate_qps=STREAM["rebase_qps"])
+    s0, q0, slast = chunk(slow, 0, 0.0)
+    s1, q1, _ = chunk(slow, 1, 0.0)
+    rebase = case(s0, q0, lut, STREAM["rebase_config"], 8)
+    r_count, r_free = fcfs_stream_ref(*rebase[:7], 0.0, qos_t, FCFS_BIG)
+    shift = float(np.float32(np.float64(slast) / np.float64(slow.scale)))
+    bspec = paper_bucketed_spec("mtwnd", "bucketed-small", seed=0)
+    ba, bl, bb, bk = bspec.generate_chunk(0, 0.0)
+    stride = int(bspec.max_batch) + 1
+    blut = torch.from_numpy(np.ascontiguousarray(np.asarray(
+        bucketed_service_time_lut(profile, types, bspec.max_batch,
+                                  bspec.buckets), np.float32).T)).cuda()
+    brows = (bk * stride + bb).to(torch.int32).reshape(1, -1).cuda()
+    # Batch rows outside [0, n_lut): both sides clamp them, as jnp does.
+    wild = r0.clone()
+    wild[0, ::7] = -5
+    wild[0, 3::7] = lut.shape[0] + 9
+    return [
+        ("chunk 0 of mtwnd's stream, (2, 3, 3), S 8, cold", base),
+        ("chunk 1 from chunk 0's carry and count", case(
+            a1, r1, lut, STREAM["config"], 8, warm, int(warm_count))),
+        ("the 10,000-query stream's partial last chunk (1808 queries)",
+         case(a2, r2, lut, STREAM["config"], 8, warm, int(warm_count))),
+        ("a rebase: 0.05 qps, chunk 1 with a shift from chunk 0's carry",
+         case(s1, q1, lut, STREAM["rebase_config"], 8, r_free, int(r_count),
+              shift)),
+        ("a bucketed table (bucketed-small, 4 buckets)",
+         case(ba.reshape(1, -1).cuda(), brows, blut, STREAM["config"], 8)),
+        ("S 40: (12, 12, 12)", case(a0, r0, lut, (12, 12, 12), 40)),
+        ("S 1024: (400, 300, 300)", case(a0, r0, lut, (400, 300, 300), 1024)),
+        ("batch rows outside [0, n_lut), clamped", case(
+            a0, wild, lut, STREAM["config"], 8)),
+    ]
+
+
+def stream_phase() -> int:
+    """The stream flavour against its plain version on the card, bit for
+    bit (final carry and count), and StreamingSimulator's empty pool and
+    empty stream on the card (no launch).  Returns the cases checked."""
+    cases = _stream_cases()
+    before = fcfs_scan_cuda.launches_by_flavour["stream"]
+    for label, (arr, rows, lut, tos, prio, free, count, shift,
+                qos_t) in cases:
+        want_count, want_free = fcfs_stream_ref(arr, rows, lut, tos, prio,
+                                                free, count, shift, qos_t,
+                                                FCFS_BIG)
+        got_free, got_count = free.clone(), count.clone()
+        ops.fcfs_stream(arr, rows, lut, tos, prio, got_free, got_count,
+                        shift, qos_t)
+        torch.cuda.synchronize()
+        if not (torch.equal(got_free, want_free)
+                and torch.equal(got_count, want_count)):
+            raise AssertionError(f"fcfs_scan stream flavour, {label}: the "
+                                 "carry or the count differs from the plain "
+                                 "version (gate: bit for bit)")
+    ran = fcfs_scan_cuda.launches_by_flavour["stream"] - before
+    if ran != len(cases):
+        raise AssertionError(f"stream flavour: {ran} launches for "
+                             f"{len(cases)} cases")
+    profile, types = _pool()
+    sim = StreamingSimulator(profile, types, paper_spec("mtwnd"),
+                             device="cuda")
+    empty, none = sim.qos((0, 0, 0), 100), sim.qos(STREAM["config"], 0)
+    launched = fcfs_scan_cuda.launches_by_flavour["stream"] - before - ran
+    if (empty.rate, empty.n_queries) != (0.0, 100) or not math.isnan(
+            none.rate) or none.n_queries != 0 or launched:
+        raise AssertionError(f"StreamingSimulator on the card: empty pool "
+                             f"{empty}, empty stream {none}, {launched} "
+                             "launches")
+    phase("kernel", f"fcfs_scan stream flavour vs plain: {len(cases)} cases "
+                    f"({'; '.join(c[0] for c in cases)}): final carries and "
+                    "counts equal bit for bit; StreamingSimulator on the "
+                    "card: an empty pool 0.0, an empty stream nan, no launch")
+    return len(cases)
 
 
 # C-F2: bf16 inputs the tensor-core kernels cannot read in place, padded or
@@ -1332,6 +1516,141 @@ def load_change_path() -> int:
                   "simulator dispatches each; every result equal, rates and "
                   "telemetry bit for bit")
     return card["dispatches"]
+
+
+def _stream(device: str, spec, config, n: int):
+    """One streamed QoS evaluation on ``device``: (result, simulator, host
+    seconds)."""
+    profile, types = _pool()
+    sim = StreamingSimulator(profile, types, spec, device=device)
+    t0 = time.perf_counter()
+    res = sim.qos(config, n)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return res, sim, time.perf_counter() - t0
+
+
+def stream_path() -> int:
+    """The streaming path (phase 7c): mtwnd's (2, 3, 3) at 800 qps in
+    chunks of 4096 over 10,000 queries on the card and on the CPU (equal,
+    0.9821), over 1,000,000 on the card (981,041 hits, no rebase, exactly
+    one stream launch a chunk and no other launch), and the rebase case at
+    0.05 qps on the card and the CPU (1.0, 4 rebases).  Returns the
+    launches (all stream flavour)."""
+    spec, config = paper_spec(STREAM["model"], seed=0), STREAM["config"]
+    small, small_sim, small_s = _stream("cuda", spec, config, STREAM["small"])
+    small_cpu, _, small_cpu_s = _stream("cpu", spec, config, STREAM["small"])
+    if small != small_cpu or (small.rate, small.rebases) != (
+            STREAM["small_rate"], 0):
+        raise AssertionError(f"stream {STREAM['small']}: card {small}, CPU "
+                             f"{small_cpu}, anchor {STREAM['small_rate']}")
+    before = {fn.__name__: fn.launches for fn in COUNTED}
+    full, full_sim, full_s = _stream("cuda", spec, config, STREAM["full"])
+    ran = {name: fn.launches - before[name] for fn, name in
+           zip(COUNTED, before)}
+    chunks = math.ceil(STREAM["full"] / spec.chunk)
+    scans = ran.pop("fcfs_scan_cuda")
+    if (full.rate, full.rebases) != (STREAM["full_hits"] / STREAM["full"], 0) \
+            or scans != chunks or full_sim.n_dispatches != chunks \
+            or any(ran.values()):
+        raise AssertionError(f"stream {STREAM['full']}: {full}, "
+                             f"{full_sim.n_dispatches} chunks; anchor "
+                             f"{STREAM['full_hits']} hits in {chunks} "
+                             f"launches; other kernels {ran}")
+    slow = paper_spec(STREAM["model"], seed=0, rate_qps=STREAM["rebase_qps"])
+    args = (slow, STREAM["rebase_config"], STREAM["rebase_n"])
+    rebase, rebase_sim, _ = _stream("cuda", *args)
+    rebase_cpu, _, _ = _stream("cpu", *args)
+    if rebase != rebase_cpu or (rebase.rate, rebase.rebases) != (
+            1.0, STREAM["rebases"]):
+        raise AssertionError(f"stream rebase: card {rebase}, CPU "
+                             f"{rebase_cpu}")
+    phase("stream", f"mtwnd {config}, 800 qps, chunks of {spec.chunk}: "
+                    f"{STREAM['small']:,} queries {small.rate} on the card "
+                    f"({small_s:.3f} s) and the CPU ({small_cpu_s:.3f} s); "
+                    f"{STREAM['full']:,} queries on the card: "
+                    f"{round(full.rate * STREAM['full']):,} within QoS, "
+                    f"{full.rebases} rebases, {full_sim.n_dispatches} "
+                    f"launches, {full_s:.3f} s (host clock), "
+                    f"{full_sim.gen_s / full_s:.1%} of it making chunks "
+                    f"(threefry on the host, the copy up), "
+                    f"{full_sim.scan_s / full_s:.1%} in the launches; at "
+                    f"{STREAM['rebase_qps']} qps {STREAM['rebase_config']} "
+                    f"over {STREAM['rebase_n']:,}: {rebase.rate}, "
+                    f"{rebase.rebases} rebases on card and CPU; on "
+                    f"{CARD['smi']}")
+    return (small_sim.n_dispatches + full_sim.n_dispatches
+            + rebase_sim.n_dispatches)
+
+
+def _episode(name: str, device: str, stream_chunk=None) -> dict:
+    """One registry episode on mtwnd's plane on ``device`` (``SCENARIOS``
+    or full-size diurnal-day); the engine's GP on the host."""
+    case = SCENARIOS.get(name, dict(episode=name, kw={}, tiered=False))
+    spec = build_episode(case["episode"], **case["kw"])
+    make = tiered_simulator_plane if case["tiered"] else paper_simulator_plane
+    t0 = time.perf_counter()
+    plane, space = make("mtwnd", spec, stream_chunk=stream_chunk,
+                        device=device)
+    rep = ScenarioEngine(spec, plane, space, device="cpu").run()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return {"report": rep.to_dict(), "dispatches": plane.n_dispatches,
+            "s": time.perf_counter() - t0}
+
+
+def _anchor_of(d: dict) -> tuple:
+    return (d["qos_rate"], d["total_cost"], d["bo_evals"], d["n_windows"],
+            d["violation_windows"], tuple(d["final_config"]),
+            tuple(a["kind"] for a in d["actions"]))
+
+
+def scenario_path() -> int:
+    """The scenario path (phase 9): diurnal-day at n 2000 / window 400,
+    spot-churn and tier-outage at n 500 (the latter on the tiered plane:
+    fault.py and tiers.py) on the card and on the CPU, equal reports equal
+    to their anchors; then full-size diurnal-day (1,000,000 queries) on
+    the card with stream_chunk 4096 against its anchors.  Returns the
+    simulator dispatches made on the card."""
+    dispatches = 0
+    for name, case in SCENARIOS.items():
+        card, cpu = _episode(name, "cuda"), _episode(name, "cpu")
+        dispatches += card["dispatches"]
+        if card["report"] != cpu["report"]:
+            raise AssertionError(f"scenario {name}: the card's report "
+                                 "differs from the CPU's")
+        got = _anchor_of(card["report"])
+        if got != case["anchor"]:
+            raise AssertionError(f"scenario {name}: {got} != anchor "
+                                 f"{case['anchor']}")
+        phase("scenario", f"{name} {case['kw']}: QoS {got[0]}, ${got[1]}, "
+                          f"{got[2]} evaluations, {got[3]} windows "
+                          f"({got[4]} violating), final {got[5]}, actions "
+                          f"{list(got[6])}; card {card['s']:.2f} s, CPU "
+                          f"{cpu['s']:.2f} s (host clock), "
+                          f"{card['dispatches']} dispatches; the same report "
+                          "on both, equal to the anchors")
+    full = _episode("diurnal-day", "cuda", stream_chunk=4096)
+    dispatches += full["dispatches"]
+    d, a = full["report"], DIURNAL_DAY
+    got = (d["total_queries"], round(d["qos_rate"], 6), d["bo_evals"],
+           d["n_windows"], d["violation_windows"], tuple(d["final_config"]))
+    want = (a["queries"], a["qos"], a["evals"], a["windows"], a["violating"],
+            a["final"])
+    if got != want or abs(d["total_cost"] - a["cost"]) > 1e-9 * a["cost"]:
+        raise AssertionError(f"diurnal-day full size: {got}, "
+                             f"${d['total_cost']!r}; anchor {want}, "
+                             f"${a['cost']!r}")
+    phase("scenario", f"diurnal-day at full size (5 x 200,000 queries, "
+                      f"window 20,000, stream_chunk 4096) on the card: "
+                      f"{d['total_queries']:,} queries, QoS {d['qos_rate']}, "
+                      f"${d['total_cost']!r}, {d['bo_evals']} evaluations, "
+                      f"{d['n_windows']} windows ({d['violation_windows']} "
+                      f"violating), final {tuple(d['final_config'])}: the "
+                      f"anchors; {full['s']:.2f} s (host clock, set-up and "
+                      f"the host's GP included), {full['dispatches']} "
+                      f"dispatches; on {CARD['smi']}")
+    return dispatches
 
 
 def _greedy(logits):
@@ -1888,12 +2207,52 @@ def _fcfs_flavour_times(arr, svc, tos, prio, free0, qos_t) -> dict:
     return out
 
 
+def _stream_times() -> dict:
+    """The stream flavour at the 1M-query stream's chunk shape (one lane,
+    4096 queries, S 8: chunk 0 of mtwnd's stream, (2, 3, 3)), kernel and
+    plain version, device-only (CUDA graph) and eager, with its bound.
+    Each timed call first restores the two carries it updates in place (a
+    copy of 36 bytes)."""
+    _, (arr, rows, lut, tos, prio, free0, count0, shift,
+        qos_t) = _stream_cases()[0]
+    free, count = free0.clone(), count0.clone()
+
+    def kernel():
+        free.copy_(free0)
+        count.copy_(count0)
+        ops.fcfs_stream(arr, rows, lut, tos, prio, free, count, shift, qos_t)
+
+    def plain():
+        free.copy_(free0)
+        count.copy_(count0)
+        return fcfs_stream_ref(arr, rows, lut, tos, prio, free, count, shift,
+                               qos_t, FCFS_BIG)
+
+    nq, n_s = arr.shape[1], tos.shape[1]
+    # arrivals and batch rows read, the table read once, the layout and
+    # priorities read, the carries read and written
+    nbytes = 4 * (2 * nq + lut.numel() + 2 * n_s + 2 * (n_s + 1))
+    n_ops = nq * (3 * n_s + 3)
+    by_ops, by_bytes = n_ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    ms = graph_ms(kernel, 20, 5)
+    return {"ms": ms, "eager_ms": event_ms(kernel, 50),
+            "ns_per_query": ms * 1e6 / nq, "plain_ms": graph_ms(plain, 1, 1),
+            "eager_plain_ms": event_ms(plain, 1),
+            "bound_ms": max(by_ops, by_bytes) * 1e3,
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "ops": n_ops, "bytes": nbytes,
+            "shape": f"W 1, L 1, nq {nq}, S {n_s}, {lut.shape[1]} types, "
+                     f"n_lut {lut.shape[0]}, carries in place"}
+
+
 def fcfs_line(launches: int, lanes: int, by_path: dict,
-              by_flavour: dict) -> dict:
+              by_flavour: dict, scenario_by_flavour: dict) -> dict:
     """fcfs_scan at the search path's batch shape: 64 mtwnd configs x 1500
     queries, S 40, latencies written (the batch lane), and without them
     (the grid lane's counts); each flavour's times and bound there
-    (``_fcfs_flavour_times``) beside its launches on the load-change path.
+    (``_fcfs_flavour_times``) beside its launches on the load-change and
+    scenario paths; the stream flavour's at the streamed chunk's shape
+    (``_stream_times``) beside its launches on the streaming path.
     Also one batch-lane dispatch of the simulator end to end (host clock:
     slot layouts up, the kernel, the QoS counts down) on the card and on
     the CPU.  Prints each flavour's times beside its times before the
@@ -1904,8 +2263,11 @@ def fcfs_line(launches: int, lanes: int, by_path: dict,
     n_w, nq = arr.shape
     n_b, n_s = tos.shape
     flavours = _fcfs_flavour_times(arr, svc, tos, prio, free0, qos_t)
+    flavours["stream"] = _stream_times()
     for name, n in by_flavour.items():
         flavours[name]["launches_load_change_path"] = n
+        flavours[name]["launches_scenario_path"] = scenario_by_flavour[name]
+    flavours["stream"]["launches_stream_path"] = by_path["stream"]
     cold = flavours["cold"]
     counts_ms = graph_ms(lambda: ops.fcfs_scan(arr, svc, tos, prio, free0,
                                                qos_t), 20, 5)
@@ -1921,6 +2283,14 @@ def fcfs_line(launches: int, lanes: int, by_path: dict,
             spans.append(time.perf_counter() - t0)
         host[device] = float(np.median(spans)) * 1e3
     for name, f in flavours.items():
+        if name == "stream":
+            phase("fcfs", f"stream ({f['shape']}): device-only "
+                          f"{f['ms']:.4f} ms, eager {f['eager_ms']:.4f} ms, "
+                          f"{f['ns_per_query']:.1f} ns a query, plain "
+                          f"{f['plain_ms']:.2f} ms, bound "
+                          f"{f['bound_ms']:.7f} ms ({f['bound_by']}); on "
+                          f"{CARD['smi']}")
+            continue
         before_ms, before_eager_ms = FCFS_BEFORE_MS[name]
         phase("fcfs", f"{name}: device-only {f['ms']:.4f} ms (before the "
                       f"redesign: {before_ms}, {BEFORE_CARD}), eager "
@@ -1938,6 +2308,7 @@ def fcfs_line(launches: int, lanes: int, by_path: dict,
             "replaces": "src/repro/serving/simulator.py:313",
             "replaces_note": "no Pallas kernel: XLA lax.scan (_simulate_scan "
                              ":313, _grid_lane_qos_counts :395, "
+                             "_stream_chunk :456, "
                              "_simulate_scan_policy :572, "
                              "_grid_lane_qos_counts_tel :503)",
             "design": "a warp per lane (workload row, pool), the slots' "
@@ -1948,8 +2319,10 @@ def fcfs_line(launches: int, lanes: int, by_path: dict,
                       "outputs and telemetry once a chunk, 32 queries at a "
                       "time; the next query's arrival, service times and "
                       "routed idle keys a step ahead; a cp.async double "
-                      "buffer a warp; policy, telemetry and trace as "
-                      "template flavours",
+                      "buffer a warp; policy, telemetry, trace and stream "
+                      "(a chunk's service rows gathered from a table as it "
+                      "is staged, the carries rebased and updated in "
+                      "place) as template flavours",
             "card": CARD["smi"],
             "launches": launches, "launches_by_path": by_path,
             "max_abs_err": 0.0, "lanes_checked": lanes,
@@ -1994,6 +2367,7 @@ def main() -> int:
     ssd_worst = ssd_phase()
     cf2_phase()
     fcfs_lanes = simulator_phase()
+    stream_phase()
     forward_phase()
 
     # Main path 1: the MT-WND serving pool and RIBBON's search over it.
@@ -2047,6 +2421,22 @@ def main() -> int:
                       f"flavour {by_flavour} (a launch counts once per "
                       "flavour it has; cold = none); no other kernel")
 
+    # Main path 2c: streamed episodes, one stream-flavour launch a chunk.
+    reset_counts()
+    st_dispatches = stream_path()
+    counts = {fn.__name__[:-5]: fn.launches for fn in COUNTED}
+    st_launches = counts.pop("fcfs_scan")
+    st_flavour = dict(fcfs_scan_cuda.launches_by_flavour)
+    if st_launches == 0 or st_launches != st_dispatches or any(
+            counts.values()) or st_flavour["stream"] != st_launches or any(
+            n for f, n in st_flavour.items() if f != "stream"):
+        raise AssertionError(f"streaming path: fcfs_scan launched "
+                             f"{st_launches} times ({st_flavour}) for "
+                             f"{st_dispatches} chunks; others {counts}")
+    phase("launches", f"fcfs_scan: {st_launches} launches on the streaming "
+                      f"path = 1 x {st_dispatches} chunks, all of the stream "
+                      "flavour; no other kernel")
+
     # Main paths 3-5: the LMs' serving paths at full width and depth.
     by_path, by_dtype = {}, {}
     for run in LM_RUNS:
@@ -2055,6 +2445,22 @@ def main() -> int:
             total = by_dtype.setdefault(kernel, dict.fromkeys(counts, 0))
             for dtype, n in counts.items():
                 total[dtype] += n
+
+    # Main path 6: the scenario engine over the simulator plane.
+    reset_counts()
+    sc_dispatches = scenario_path()
+    counts = {fn.__name__[:-5]: fn.launches for fn in COUNTED}
+    sc_launches = counts.pop("fcfs_scan")
+    sc_flavour = dict(fcfs_scan_cuda.launches_by_flavour)
+    if sc_launches == 0 or sc_launches != sc_dispatches or any(
+            counts.values()):
+        raise AssertionError(f"scenario path: fcfs_scan launched "
+                             f"{sc_launches} times ({sc_flavour}) for "
+                             f"{sc_dispatches} simulator dispatches; others "
+                             f"{counts}")
+    phase("launches", f"fcfs_scan: {sc_launches} launches on the scenario "
+                      f"path = 1 x {sc_dispatches} simulator dispatches, by "
+                      f"flavour {sc_flavour}; no other kernel")
 
     def launches(kernel: str) -> tuple[int, dict]:
         counts = {arch: c[kernel] for arch, c in by_path.items() if c[kernel]}
@@ -2069,9 +2475,11 @@ def main() -> int:
                          attn_worst["decode_attention"]),
              ssd_line(*launches("ssd_scan"), by_dtype["ssd_scan"],
                       ssd_worst),
-             fcfs_line(scan_launches + lc_launches, fcfs_lanes,
-                       {"search": scan_launches,
-                        "load_change": lc_launches}, by_flavour)]
+             fcfs_line(scan_launches + lc_launches + st_launches
+                       + sc_launches, fcfs_lanes,
+                       {"search": scan_launches, "load_change": lc_launches,
+                        "stream": st_launches, "scenario": sc_launches},
+                       by_flavour, sc_flavour)]
     for line in lines:
         phase("kernel", f"{line['name']} at its path's shape, device-only "
                         f"(CUDA graph): kernel {_ms(line['ms'])}, plain "

@@ -5,7 +5,8 @@
 
 Builds ``src/repro_torch/csrc/fcfs_scan.cu`` (nvcc, sm_90a) and prints what
 ptxas reports for each template instantiation (K slots a thread, and the
-policy, telemetry and trace flags): registers, stack frame, spills.  Then
+policy, telemetry, trace and stream flags): registers, stack frame,
+spills.  Then
 times the chain floor: a microkernel of 1500 (and 15000) dependent warp
 steps in three forms, each step's result feeding the next step's compare,
 and prints ns a step:
@@ -18,7 +19,7 @@ and prints ns a step:
 
 Then holds the kernel to its plain version in ``chip_smoke.py``'s
 simulator cases (cold, the routed, warm, traced and telemetry flavours,
-and the pick cases), bit for bit, and prints ``chip_smoke.py``'s
+the pick cases, and the stream flavour's cases), bit for bit, and prints ``chip_smoke.py``'s
 ``fcfs_scan`` line: each flavour's device-only and eager times at the
 search path's batch shape beside its times before the redesign and the
 plain version's, its
@@ -120,12 +121,12 @@ extern "C" int chain_floor(int form, const void* in, void* out, int steps,
 FORMS = ("vote", "idle", "shuffle")
 
 _KERNEL = re.compile(
-    r"fcfs_scan_kernelILi(\d+)ELb([01])ELb([01])ELb([01])E")
+    r"fcfs_scan_kernelILi(\d+)ELb([01])ELb([01])ELb([01])ELb([01])E")
 
 
 def instantiation_usage(log: str) -> list[str]:
-    """One line per ``fcfs_scan_kernel<K, POLICY, TEL, TRACE>`` from the
-    ptxas log: registers, stack frame and spill bytes."""
+    """One line per ``fcfs_scan_kernel<K, POLICY, TEL, TRACE, STREAM>``
+    from the ptxas log: registers, stack frame and spill bytes."""
     rows, name, frame = {}, None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line or "Function properties" in line:
@@ -137,9 +138,10 @@ def instantiation_usage(log: str) -> list[str]:
             regs = re.search(r"Used (\d+) registers", line).group(1)
             rows[name] = f"{regs} registers, {frame}"
     out = []
-    for (k, pol, tel, tr), usage in sorted(rows.items()):
+    for (k, pol, tel, tr, st), usage in sorted(rows.items()):
         flags = [f for f, on in (("policy", pol), ("telemetry", tel),
-                                 ("trace", tr)) if on] or ["cold"]
+                                 ("trace", tr), ("stream", st))
+                 if on] or ["cold"]
         out.append(f"K {k:2d} {'+'.join(flags):25s} {usage}")
     return out
 
@@ -221,6 +223,7 @@ def main() -> int:
                              f"step ({f['ms_1500_steps']:.4f} ms for 1500 "
                              f"steps, launch included); on {smoke.CARD['smi']}")
     lanes = smoke.simulator_phase()
+    smoke.stream_phase()
     if args.variant:
         for name, flavours in variant_times(args.variant).items():
             smoke.phase("variant", f"{name}: " + "; ".join(
@@ -233,8 +236,9 @@ def main() -> int:
         smoke.reset_counts()
         dispatches = smoke.load_change_path()
         by_flavour = dict(smoke.fcfs_scan_cuda.launches_by_flavour)
-    line = smoke.fcfs_line(dispatches, lanes, {"load_change": dispatches},
-                           by_flavour)
+    line = smoke.fcfs_line(dispatches, lanes,
+                           {"load_change": dispatches, "stream": 0},
+                           by_flavour, dict.fromkeys(smoke.FLAVOURS, 0))
     line["chain_floor"] = floor
     print(json.dumps(line))
     return 0

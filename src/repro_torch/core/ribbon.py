@@ -195,7 +195,9 @@ class RibbonOptimizer:
             self._init_queue.pop(0)
         idx = self.space.index_of(config)
         cost = float(self.lattice_costs[idx])
-        feasible = qos_rate >= self.qos_target
+        # A Python bool: a numpy rate (np.float64) gives np.bool_, which the
+        # device prune rules cannot combine with a mask.
+        feasible = bool(qos_rate >= self.qos_target)
         obj = ribbon_objective(qos_rate, cost, self.qos_target, self._max_cost)
 
         self.sampled[idx] = True

@@ -3,8 +3,9 @@
 // Replaces no TPU kernel: in the reference this loop is XLA's lax.scan,
 // src/repro/serving/simulator.py::_simulate_scan (batch, grid and
 // stacked-table vmaps), its fused QoS counter _grid_lane_qos_counts, the
-// routed scans _simulate_scan_policy / _grid_lane_qos_counts_policy and the
-// in-carry telemetry counters _grid_lane_qos_counts_tel / ..._policy_tel.
+// routed scans _simulate_scan_policy / _grid_lane_qos_counts_policy, the
+// in-carry telemetry counters _grid_lane_qos_counts_tel / ..._policy_tel
+// and the streamed chunk _stream_chunk.
 // Each lane (workload row w, slot layout b) serves the query stream in
 // arrival order; query q goes to the first idle slot in priority order, or
 // else to the slot that frees first:
@@ -68,6 +69,17 @@
 //   milliseconds are counted in the chunk's pass from the records, as
 //   integer shared-memory atomics (so in any order, to the same sums).
 // TRACE: the winning slot of each query is recorded and written.
+// STREAM (one chunk of a streamed episode, the reference's _stream_chunk):
+//   the service rows are gathered from a lookup table by each query's batch
+//   index, lut[batch[q], t], as the chunk is staged (the index clamped to
+//   [0, n_lut), as jnp's gather clamps); every slot's carry is rebased by
+//   one __fsub_rn(free0, shift) at load (1e30 - shift == 1e30); the chunk's
+//   QoS count is added to a count carried on the device, and the final
+//   next-free times are written back over the carry they were read from
+//   (free_out == free0: each thread reads its own slots into registers
+//   before the scan and writes the same slots after it).  A streamed chunk
+//   is one launch with no copy to the host; the final partial chunk is a
+//   shorter nq, the same bits as the reference's masked tail.
 //
 // Arithmetic: every step is one IEEE compare, max, add, subtract or (the
 // routed keys, as XLA fuses them) fused multiply-add in float32
@@ -116,6 +128,10 @@ struct ScanArgs {
   float* free_out;            // (n_w, n_b, n_s)
   int32_t* slot_out;          // TRACE: (n_w, n_b, nq)
   int32_t* tel;               // TEL: (n_w, n_b, 3 n_types + 2 kBuckets + 2)
+  const int32_t* batches;     // STREAM: (n_w, nq) row indices into lut
+  const float* lut;           // STREAM: (n_lut, n_types)
+  int n_lut;
+  float shift;                // STREAM: subtracted from every carry at load
 };
 
 // Order-preserving unsigned image of a float32: x < y iff image(x) <
@@ -215,7 +231,7 @@ __device__ __forceinline__ int bucket(float x) {
 // memory kWarps * warp_words(n_types, chunk, TEL) words, at most
 // 4 * (2 * 1024 + 3 * 256 + 160) * 4 = 47,616 bytes: under the 48 KB a
 // launch gets without opting in.
-template <int K, bool POLICY, bool TEL, bool TRACE>
+template <int K, bool POLICY, bool TEL, bool TRACE, bool STREAM>
 __global__ void __launch_bounds__(kWarps * 32)
 fcfs_scan_kernel(const ScanArgs p) {
   extern __shared__ float smem[];
@@ -252,6 +268,7 @@ fcfs_scan_kernel(const ScanArgs p) {
     prio[k] = pref[k] = 0.f;
     if (s < n_s) {
       fr[k] = p.free0[carry_row * n_s + s];
+      if (STREAM) fr[k] = __fsub_rn(fr[k], p.shift);
       ty[k] = min(max(p.type_of_slot[static_cast<int64_t>(b) * n_s + s], 0),
                   n_types - 1);
       if (POLICY) {
@@ -274,8 +291,11 @@ fcfs_scan_kernel(const ScanArgs p) {
 
   const float* arr_row = p.arrivals + static_cast<int64_t>(w) * nq;
   const float* svc_row =
-      p.service +
-      (p.service_rows == 1 ? 0 : static_cast<int64_t>(w)) * n_types * nq;
+      STREAM ? nullptr
+             : p.service + (p.service_rows == 1 ? 0 : static_cast<int64_t>(w)) *
+                               n_types * nq;
+  const int32_t* bat_row = STREAM ? p.batches + static_cast<int64_t>(w) * nq
+                                  : nullptr;
   const int64_t out_row = (static_cast<int64_t>(w) * p.n_b + b) * nq;
   const int32_t* tos_row = p.type_of_slot + static_cast<int64_t>(b) * n_s;
   const int n_chunks = (nq + ch - 1) / ch;
@@ -285,10 +305,19 @@ fcfs_scan_kernel(const ScanArgs p) {
   auto stage = [&](int c) {  // chunk c into buffer c & 1
     float* dst = bufs + (c & 1) * span;
     const int q0 = c * ch, n = min(ch, nq - q0);
-    for (int t = 0; t <= n_types; ++t) {
-      const float* src =
-          t == 0 ? arr_row + q0 : svc_row + static_cast<int64_t>(t - 1) * nq + q0;
-      for (int i = lane; i < n; i += 32) cp_async4(dst + t * ch + i, src + i);
+    if constexpr (STREAM) {
+      for (int i = lane; i < n; i += 32) {
+        cp_async4(dst + i, arr_row + q0 + i);
+        const int r = min(max(bat_row[q0 + i], 0), p.n_lut - 1);
+        const float* src = p.lut + static_cast<int64_t>(r) * n_types;
+        for (int t = 0; t < n_types; ++t) cp_async4(dst + (1 + t) * ch + i, src + t);
+      }
+    } else {
+      for (int t = 0; t <= n_types; ++t) {
+        const float* src = t == 0 ? arr_row + q0
+                                  : svc_row + static_cast<int64_t>(t - 1) * nq + q0;
+        for (int i = lane; i < n; i += 32) cp_async4(dst + t * ch + i, src + i);
+      }
     }
     cp_async_commit();
   };
@@ -451,7 +480,7 @@ fcfs_scan_kernel(const ScanArgs p) {
   }
   count = __reduce_add_sync(kFull, count);
   const int64_t lane_row = static_cast<int64_t>(w) * p.n_b + b;
-  if (lane == 0) p.counts[lane_row] = count;
+  if (lane == 0) p.counts[lane_row] = STREAM ? p.counts[lane_row] + count : count;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int s = k * 32 + lane;
@@ -474,12 +503,12 @@ fcfs_scan_kernel(const ScanArgs p) {
   }
 }
 
-template <int K, bool POLICY, bool TEL, bool TRACE>
+template <int K, bool POLICY, bool TEL, bool TRACE, bool STREAM = false>
 cudaError_t launch(const ScanArgs& args, int n_w, cudaStream_t stream) {
   const dim3 grid((args.n_b + kWarps - 1) / kWarps, n_w);
   const size_t smem =
       sizeof(float) * kWarps * warp_words(args.n_types, args.chunk, TEL);
-  fcfs_scan_kernel<K, POLICY, TEL, TRACE>
+  fcfs_scan_kernel<K, POLICY, TEL, TRACE, STREAM>
       <<<grid, kWarps * 32, smem, stream>>>(args);
   return cudaGetLastError();
 }
@@ -498,6 +527,13 @@ cudaError_t launch_flavour(const ScanArgs& a, int n_w, cudaStream_t s) {
                      : launch<K, false, true, false>(a, n_w, s);
   return tr ? launch<K, false, false, true>(a, n_w, s)
             : launch<K, false, false, false>(a, n_w, s);
+}
+
+// The chunk of queries staged in a buffer for n_types service rows.
+int chunk_for(int n_types) {
+  int chunk = kMaxChunk;
+  while ((1 + n_types) * chunk > kWarpFloats) chunk /= 2;
+  return chunk;
 }
 
 }  // namespace
@@ -542,8 +578,7 @@ extern "C" int fcfs_scan_forward(
   a.nq = nq;
   a.big = big;
   a.qos_t = qos_t;
-  a.chunk = kMaxChunk;
-  while ((1 + n_types) * a.chunk > kWarpFloats) a.chunk /= 2;
+  a.chunk = chunk_for(n_types);
   a.pref_slot = static_cast<const float*>(pref_slot);
   a.affinity = static_cast<const float*>(affinity);
   a.hedge = static_cast<const float*>(hedge);
@@ -554,6 +589,10 @@ extern "C" int fcfs_scan_forward(
   a.free_out = static_cast<float*>(free_out);
   a.slot_out = static_cast<int32_t*>(slot_out);
   a.tel = static_cast<int32_t*>(tel);
+  a.batches = nullptr;
+  a.lut = nullptr;
+  a.n_lut = 0;
+  a.shift = 0.f;
   auto s = static_cast<cudaStream_t>(stream);
   const int per_thread = (n_s + 31) / 32;
   if (per_thread <= 1) return static_cast<int>(launch_flavour<1>(a, n_w, s));
@@ -562,4 +601,51 @@ extern "C" int fcfs_scan_forward(
   if (per_thread <= 8) return static_cast<int>(launch_flavour<8>(a, n_w, s));
   if (per_thread <= 16) return static_cast<int>(launch_flavour<16>(a, n_w, s));
   return static_cast<int>(launch_flavour<32>(a, n_w, s));
+}
+
+// One chunk of a streamed episode (the STREAM flavour): arrivals (n_w, nq)
+// f32; batches (n_w, nq) i32, each query's row of lut (n_lut, n_types) f32;
+// type_of_slot (n_b, n_s) i32; priority (n_s,) f32; free (n_w, n_b, n_s)
+// f32, the carried next-free times, rebased by ``shift`` at load and
+// overwritten with the final ones; count (n_w, n_b) i32, the carried QoS
+// count, to which the chunk's count is added.  All contiguous; 1 <= n_s <=
+// 1024, 1 <= n_types <= 32, n_lut >= 1, n_w <= 65535.  Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int fcfs_stream_forward(
+    const void* arrivals, const void* batches, const void* lut, int n_lut,
+    const void* type_of_slot, const void* priority, void* free, void* count,
+    int n_w, int n_b, int n_s, int n_types, int nq, float big, float shift,
+    float qos_t, void* stream) {
+  if (n_w <= 0 || n_b <= 0) return 0;
+  if (n_s < 1 || n_s > 1024 || n_types < 1 || n_types > 32 || n_w > 65535 ||
+      nq < 0 || n_lut < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ScanArgs a = {};
+  a.arrivals = static_cast<const float*>(arrivals);
+  a.service_rows = 1;
+  a.type_of_slot = static_cast<const int32_t*>(type_of_slot);
+  a.priority = static_cast<const float*>(priority);
+  a.free0 = static_cast<const float*>(free);
+  a.free0_rows = n_w;
+  a.n_b = n_b;
+  a.n_s = n_s;
+  a.n_types = n_types;
+  a.nq = nq;
+  a.big = big;
+  a.qos_t = qos_t;
+  a.chunk = chunk_for(n_types);
+  a.counts = static_cast<int32_t*>(count);
+  a.free_out = static_cast<float*>(free);
+  a.batches = static_cast<const int32_t*>(batches);
+  a.lut = static_cast<const float*>(lut);
+  a.n_lut = n_lut;
+  a.shift = shift;
+  auto s = static_cast<cudaStream_t>(stream);
+  const int per_thread = (n_s + 31) / 32;
+  if (per_thread <= 1) return static_cast<int>(launch<1, false, false, false, true>(a, n_w, s));
+  if (per_thread <= 2) return static_cast<int>(launch<2, false, false, false, true>(a, n_w, s));
+  if (per_thread <= 4) return static_cast<int>(launch<4, false, false, false, true>(a, n_w, s));
+  if (per_thread <= 8) return static_cast<int>(launch<8, false, false, false, true>(a, n_w, s));
+  if (per_thread <= 16) return static_cast<int>(launch<16, false, false, false, true>(a, n_w, s));
+  return static_cast<int>(launch<32, false, false, false, true>(a, n_w, s));
 }

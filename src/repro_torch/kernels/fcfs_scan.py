@@ -4,8 +4,9 @@ A kernel of the port with no Pallas counterpart: it replaces XLA's
 ``lax.scan`` over the query stream in ``repro/serving/simulator.py``
 (``_simulate_scan`` and its vmaps, the fused QoS counter
 ``_grid_lane_qos_counts``, the routed scans ``_simulate_scan_policy`` and
-``_grid_lane_qos_counts_policy``, and the in-carry telemetry counters
-``_grid_lane_qos_counts_tel`` / ``..._policy_tel``).  One warp per lane
+``_grid_lane_qos_counts_policy``, the in-carry telemetry counters
+``_grid_lane_qos_counts_tel`` / ``..._policy_tel``, and the streamed chunk
+``_stream_chunk``).  One warp per lane
 (workload row, slot layout) with the slots' next-free times in registers.
 A query's slot is picked by one ``redux.min`` over an order-preserving
 unsigned image of each slot's key and equality ballots (the lowest set bit
@@ -32,10 +33,20 @@ One launch takes any mix of these, each a template flag of the kernel:
 * the dispatch trace: the winning slot of each query, (W, L, nq) int32.
 
 ``free0`` is (L, S), shared by every workload row, or (W, L, S), one carry
-per row.  ``fcfs_scan_cuda.launches`` counts the launches and
+per row.
+
+The stream flavour (``fcfs_stream_cuda``, the reference's ``_stream_chunk``)
+scans one chunk of a streamed episode in place: the service rows are
+gathered from a lookup table by each query's batch index as the chunk is
+staged, the carried next-free times (W, L, S) are rebased by ``shift`` at
+load and overwritten with the final ones, and the chunk's QoS count is
+added to a count (W, L) carried on the device.
+
+``fcfs_scan_cuda.launches`` counts the launches of every flavour and
 ``fcfs_scan_cuda.launches_by_flavour`` each flavour's ("cold": none of the
-three; "policy", "telemetry", "trace": every launch that has it), so a run
-can show which lanes went through the kernel.
+others; "policy", "telemetry", "trace": every launch that has it;
+"stream": every streamed chunk), so a run can show which lanes went through
+the kernel.
 """
 
 from __future__ import annotations
@@ -63,11 +74,14 @@ EDGE0_BITS = struct.unpack("<i", struct.pack("<f", 1e-4))[0]
 MAX_SLOTS = 1024       # slots per layout: 32 a thread of one warp
 MAX_TYPES = 32         # service rows staged in shared memory; one a thread
 MAX_ROWS = 65535       # workload rows: the grid's y dimension
-FLAVOURS = ("cold", "policy", "telemetry", "trace")
+FLAVOURS = ("cold", "policy", "telemetry", "trace", "stream")
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
              + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
              + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 11)
+_STREAM_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
 
 
 class ScanResult(NamedTuple):
@@ -164,6 +178,89 @@ def check_inputs(arrivals: torch.Tensor, service: torch.Tensor,
         raise ValueError("fcfs_scan: inputs must be contiguous")
     if max(nq, n_b) >= 2 ** 31:
         raise ValueError("fcfs_scan: nq and L must fit in int32")
+
+
+def check_stream_inputs(arrivals: torch.Tensor, batches: torch.Tensor,
+                        lut: torch.Tensor, type_of_slot: torch.Tensor,
+                        priority: torch.Tensor, free: torch.Tensor,
+                        count: torch.Tensor) -> None:
+    """Raise on anything the stream flavour does not take: arrivals (W, nq)
+    f32; batches (W, nq) i32; lut (n_lut, n_types) f32 with n_lut >= 1 and
+    1 <= n_types <= MAX_TYPES; type_of_slot (L, S) i32 with 1 <= S <=
+    MAX_SLOTS; priority (S,) f32; the carries free (W, L, S) f32 and count
+    (W, L) i32; W <= MAX_ROWS; all contiguous and on one device.  Batch
+    indices are not read here: the kernel clamps them to [0, n_lut), as jnp's
+    gather clamps."""
+    named = [("arrivals", arrivals, torch.float32),
+             ("batches", batches, torch.int32), ("lut", lut, torch.float32),
+             ("type_of_slot", type_of_slot, torch.int32),
+             ("priority", priority, torch.float32),
+             ("free", free, torch.float32), ("count", count, torch.int32)]
+    tensors = [t for _, t, _ in named]
+    if any(t.device != arrivals.device for t in tensors):
+        raise ValueError("fcfs_stream: inputs must be on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    for name, t, dtype in named:
+        if t.dtype != dtype:
+            raise TypeError(f"fcfs_stream: {name} must be {dtype}, got "
+                            f"{t.dtype}")
+    if arrivals.dim() != 2 or lut.dim() != 2 or type_of_slot.dim() != 2:
+        raise ValueError("fcfs_stream: arrivals must be (W, nq), lut (n_lut, "
+                         "n_types) and type_of_slot (L, S), got "
+                         f"{tuple(arrivals.shape)}, {tuple(lut.shape)}, "
+                         f"{tuple(type_of_slot.shape)}")
+    n_w, nq = arrivals.shape
+    n_b, n_s = type_of_slot.shape
+    if batches.shape != (n_w, nq):
+        raise ValueError(f"fcfs_stream: batches must be ({n_w}, {nq}), got "
+                         f"{tuple(batches.shape)}")
+    if lut.shape[0] < 1 or not 1 <= lut.shape[1] <= MAX_TYPES:
+        raise ValueError(f"fcfs_stream: lut must be (n_lut >= 1, 1 to "
+                         f"{MAX_TYPES} types), got {tuple(lut.shape)}")
+    if not 1 <= n_s <= MAX_SLOTS:
+        raise ValueError(f"fcfs_stream: 1 to {MAX_SLOTS} slots, got {n_s}")
+    if (priority.shape != (n_s,) or free.shape != (n_w, n_b, n_s)
+            or count.shape != (n_w, n_b)):
+        raise ValueError(f"fcfs_stream: priority must be ({n_s},), free "
+                         f"({n_w}, {n_b}, {n_s}) and count ({n_w}, {n_b}), "
+                         f"got {tuple(priority.shape)}, {tuple(free.shape)} "
+                         f"and {tuple(count.shape)}")
+    if n_w > MAX_ROWS:
+        raise ValueError(f"fcfs_stream: at most {MAX_ROWS} workload rows, "
+                         f"got {n_w}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("fcfs_stream: inputs must be contiguous")
+    if max(nq, n_b, lut.shape[0]) >= 2 ** 31:
+        raise ValueError("fcfs_stream: nq, L and n_lut must fit in int32")
+
+
+def fcfs_stream_cuda(arrivals: torch.Tensor, batches: torch.Tensor,
+                     lut: torch.Tensor, type_of_slot: torch.Tensor,
+                     priority: torch.Tensor, free: torch.Tensor,
+                     count: torch.Tensor, shift: float, qos_t: float) -> None:
+    """Launch the stream flavour on the current stream (inputs already
+    checked by ``check_stream_inputs``, on a CUDA device): ``free`` and
+    ``count`` are updated in place.  Raises if the launch fails."""
+    if arrivals.device.type != "cuda":
+        raise ValueError(f"fcfs_stream_cuda needs CUDA tensors, got "
+                         f"{arrivals.device}")
+    n_w, nq = arrivals.shape
+    n_b, n_s = type_of_slot.shape
+    if n_w == 0 or n_b == 0:
+        return
+    fn = _build.function("fcfs_scan", "fcfs_stream_forward", _STREAM_ARGTYPES)
+    dev = arrivals.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(arrivals.data_ptr(), batches.data_ptr(), lut.data_ptr(),
+                lut.shape[0], type_of_slot.data_ptr(), priority.data_ptr(),
+                free.data_ptr(), count.data_ptr(), n_w, n_b, n_s,
+                lut.shape[1], nq, BIG, shift, qos_t, stream)
+    if rc != 0:
+        raise RuntimeError(f"fcfs_stream kernel launch failed: cudaError_t "
+                           f"{rc}")
+    fcfs_scan_cuda.launches += 1
+    fcfs_scan_cuda.launches_by_flavour["stream"] += 1
 
 
 def fcfs_scan_cuda(arrivals: torch.Tensor, service: torch.Tensor,

@@ -18,7 +18,7 @@ from . import fcfs_scan as _fcfs
 from . import flash_attention as _flash
 from . import ssd_scan as _ssd
 from .ref import (decode_attention_ref, embedding_bag_ref, fcfs_scan_ref,
-                  flash_attention_ref, ssd_scan_ref)
+                  fcfs_stream_ref, flash_attention_ref, ssd_scan_ref)
 
 
 def _route(name: str, device: torch.device):
@@ -106,3 +106,27 @@ def fcfs_scan(arrivals: torch.Tensor, service: torch.Tensor,
     return _fcfs.ScanResult(*fcfs_scan_ref(
         arrivals, service, type_of_slot, priority, free0, qos_t, _fcfs.BIG,
         **kw))
+
+
+def fcfs_stream(arrivals: torch.Tensor, batches: torch.Tensor,
+                lut: torch.Tensor, type_of_slot: torch.Tensor,
+                priority: torch.Tensor, free: torch.Tensor,
+                count: torch.Tensor, shift: float, qos_t: float) -> None:
+    """One chunk of a streamed episode through the FCFS scan, in place:
+    arrivals (W, nq) f32; batches (W, nq) i32, each query's row of the
+    service lookup table lut (n_lut, n_types) f32; type_of_slot (L, S) i32;
+    priority (S,) f32; the carries free (W, L, S) f32, rebased by ``shift``
+    before the chunk and overwritten with its final next-free times, and
+    count (W, L) i32, to which the chunk's count of queries within
+    ``qos_t`` is added (see ``kernels.fcfs_scan``)."""
+    _fcfs.check_stream_inputs(arrivals, batches, lut, type_of_slot, priority,
+                              free, count)
+    if _route("fcfs_stream", arrivals.device):
+        _fcfs.fcfs_stream_cuda(arrivals, batches, lut, type_of_slot,
+                               priority, free, count, shift, qos_t)
+        return
+    new_count, new_free = fcfs_stream_ref(arrivals, batches, lut,
+                                          type_of_slot, priority, free,
+                                          count, shift, qos_t, _fcfs.BIG)
+    count.copy_(new_count)
+    free.copy_(new_free)

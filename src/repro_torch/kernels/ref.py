@@ -296,3 +296,24 @@ def fcfs_scan_ref(arrivals: torch.Tensor, service: torch.Tensor,
         tel = torch.cat([served, miss, busy, lath, waith, dsum[..., None],
                          dpeak[..., None]], dim=-1)
     return counts, lat, starts, free, slots, tel
+
+
+def fcfs_stream_ref(arrivals: torch.Tensor, batches: torch.Tensor,
+                    lut: torch.Tensor, type_of_slot: torch.Tensor,
+                    priority: torch.Tensor, free: torch.Tensor,
+                    count: torch.Tensor, shift: float, qos_t: float,
+                    big: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of a streamed episode, the reference's ``_stream_chunk``:
+    arrivals (W, nq) f32, batches (W, nq) i32 (each query's row of ``lut``,
+    clamped to [0, n_lut) as jnp's gather clamps), lut (n_lut, n_types) f32,
+    type_of_slot (L, S) i32, priority (S,) f32, the carries free (W, L, S)
+    f32 and count (W, L) i32 → (count + the chunk's QoS count, the final
+    next-free times).  The carry is rebased first, ``free - shift`` in
+    float32 (``1e30 - shift == 1e30``); then the scan of ``fcfs_scan_ref``
+    from per-row carries, with the service table ``lut[batches]``.  The
+    inputs are not modified."""
+    rows = batches.long().clamp(0, lut.shape[0] - 1)
+    service = lut[rows].permute(0, 2, 1).contiguous()   # (W, n_types, nq)
+    counts, _, _, final, _, _ = fcfs_scan_ref(
+        arrivals, service, type_of_slot, priority, free - shift, qos_t, big)
+    return count + counts, final

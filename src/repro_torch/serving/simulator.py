@@ -42,14 +42,17 @@ lane) or the same device counts against the float32 threshold
 no latencies to the host), equal to that mean bit for bit.  All-zero
 configs serve nothing: +inf latencies, rate 0, zero telemetry.
 
-Not ported yet, refused with ``NotImplementedError`` naming its ROADMAP
-item: the streaming simulator (A-10).  The reference's deprecated aliases
-(``latencies*``, ``qos_rate*``, ``*_from``) are not ported: ``simulate``
-and ``qos`` take every lane.
+:class:`StreamingSimulator` streams a generative spec chunk by chunk, each
+chunk one launch of the kernel's stream flavour with the carries kept on
+the device.  The reference's deprecated aliases (``latencies*``,
+``qos_rate*``, ``*_from``) are not ported: ``simulate`` and ``qos`` take
+every lane.
 """
 
 from __future__ import annotations
 
+import math
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -58,7 +61,9 @@ import torch
 from ..device import resolve_device
 from ..kernels import fcfs_scan as _fcfs
 from ..kernels import ops
-from .instance import InstanceType, ModelProfile, service_table_for
+from .instance import (InstanceType, ModelProfile,
+                       bucketed_service_time_lut, service_table_for,
+                       service_time_lut)
 from .routing import RoutingPolicy
 from .telemetry import Telemetry, from_arrays, queue_depth
 from .workload import Workload
@@ -76,11 +81,6 @@ _MAX_HORIZON = _BIG / 8.0
 # _TIE + priority``; a power of two, so the identity policy's key is exactly
 # ``priority`` (the kernel's own constant).
 _TIE = _fcfs.TIE
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
 def _check_horizon(t_max: float, context: str) -> None:
@@ -979,8 +979,151 @@ class PoolSimulator:
         return rates, tel
 
 
-class StreamingSimulator:
-    """The reference's chunked streaming simulator (ROADMAP A-10)."""
+@dataclass(frozen=True)
+class StreamResult:
+    """Outcome of a streamed QoS evaluation."""
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("StreamingSimulator", "A-10")
+    rate: float          # QoS satisfaction fraction (paper Eq. 2 R_sat)
+    n_queries: int       # queries streamed
+    rebases: int         # clock rebases taken (0 while horizon < _MAX_HORIZON/2)
+
+
+class StreamingSimulator:
+    """Constant-memory streamed twin of :class:`PoolSimulator`'s QoS lane.
+
+    Bound to a generative :class:`~repro_torch.serving.workload.WorkloadSpec`
+    instead of a finite :class:`Workload`: chunk ``c`` of the stream is drawn
+    on the host (``spec.generate_chunk``, host tensors by design), copied to
+    ``device`` (8 bytes a query) and scanned in one launch of the FCFS
+    kernel's stream flavour (``kernels.ops.fcfs_stream``), which gathers the
+    service times from a lookup table by each query's batch and updates the
+    two carries, ``free`` (1, 1, S) and ``count`` (1, 1), in place on the
+    device.  Evaluating ``n`` queries holds one chunk plus the two carries
+    whatever ``n``, and nothing crosses back to the host until the count at
+    the end.
+
+    Bit-exactness contract (the reference's ``StreamingSimulator``):
+
+      * while the unscaled horizon stays below ``_MAX_HORIZON / 2`` the
+        streamed QoS count equals ``PoolSimulator(model, types,
+        spec.realize(n)).qos(config)`` bit for bit: the same slot layout
+        (``_expand_slots``), the same power-of-two slot width, the same
+        float32 threshold (``_qos_threshold_f32``) and the same per-query
+        arithmetic (the table gather reproduces the service-table column);
+      * beyond that the stream *rebases*: the next chunk's gaps accumulate
+        from 0 again and the carry drops the same origin (the float32 value
+        of the scaled origin) as it enters that chunk, which keeps every
+        timestamp inside the guarded float32 envelope at any length.
+
+    ``n_dispatches`` counts the chunks scanned; ``gen_s`` and ``scan_s``
+    accumulate the host seconds spent making chunks (generation and the
+    copy up) and launching them.
+    """
+
+    def __init__(self, model: ModelProfile, types: list[InstanceType],
+                 spec, max_instances: int = 40, device=None):
+        self.device = resolve_device(device)
+        self.model = model
+        self.types = list(types)
+        self.spec = spec
+        self.max_instances = max_instances
+        # Bucketed specs expand the table to one block per bucket: the row
+        # of a query is ``bucket * (max_batch + 1) + batch``, which with a
+        # single unit bucket is the batch size over the plain table.
+        buckets = getattr(spec, "buckets", None)
+        if buckets is None:
+            lut = service_time_lut(model, self.types, spec.max_batch)
+        else:
+            lut = bucketed_service_time_lut(model, self.types,
+                                            spec.max_batch, buckets)
+        self._bucketed = buckets is not None
+        self._lut_stride = int(spec.max_batch) + 1
+        # float32 cast before the transpose: the rows hold exactly the
+        # float32 values the monolithic lane's service-table cast produces.
+        self._lut = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(lut, dtype=np.float32).T)).to(self.device)
+        self._priority = torch.arange(max_instances, dtype=torch.float32,
+                                      device=self.device)
+        self.n_dispatches = 0
+        self.gen_s = 0.0
+        self.scan_s = 0.0
+
+    def _chunk(self, c: int, base: float, m: int):
+        """Chunk ``c`` of the bound stream: (arrivals (1, m) f32 and batch
+        rows (1, m) i32 on the device, the chunk's last unscaled arrival)."""
+        if self._bucketed:
+            arr, local, batches, bucket = self.spec.generate_chunk(c, base)
+            batches = bucket * self._lut_stride + batches
+        else:
+            arr, local, batches = self.spec.generate_chunk(c, base)
+        arr = arr[:m].reshape(1, m).to(self.device)
+        rows = batches[:m].to(torch.int32).reshape(1, m).to(self.device)
+        return arr, rows, float(local[-1])
+
+    def qos(self, config, n_queries: int, *, probe=None) -> StreamResult:
+        """Stream ``n_queries`` of the bound spec through ``config``.
+
+        ``probe``, if given, is called as ``probe(chunk_index)`` after each
+        chunk."""
+        cfg = np.asarray(config, dtype=np.int64)
+        if cfg.ndim != 1 or len(cfg) != len(self.types):
+            raise ValueError(f"expected ({len(self.types)},) config, got "
+                             f"shape {cfg.shape}")
+        n = int(n_queries)
+        if n < 0:
+            raise ValueError("n_queries must be >= 0")
+        if n == 0:
+            # 0/0 convention of the grid lane: no queries, no violations.
+            return StreamResult(rate=float("nan"), n_queries=0, rebases=0)
+        if int(cfg.sum()) == 0:
+            # Single-lane convention: an empty pool serves nothing within
+            # QoS (latencies are +inf).
+            return StreamResult(rate=0.0, n_queries=n, rebases=0)
+        type_of_slot, active = _expand_slots(cfg[None, :], len(self.types),
+                                             self.max_instances)
+        width = min(max(8, 1 << (int(cfg.sum()) - 1).bit_length()),
+                    self.max_instances)
+        tos = torch.from_numpy(np.ascontiguousarray(
+            type_of_slot[:, :width])).to(self.device)
+        prio = self._priority[:width].contiguous()
+        qos_t = _qos_threshold_f32(self.model.qos_latency)
+        free = torch.from_numpy(np.ascontiguousarray(
+            _cold_free0(active[:, :width])[None])).to(self.device)
+        count = torch.zeros((1, 1), dtype=torch.int32, device=self.device)
+
+        chunk = self.spec.chunk
+        scale = float(self.spec.scale)
+        base = 0.0
+        shift = 0.0
+        rebases = 0
+        for c in range(math.ceil(n / chunk)):
+            t0 = time.perf_counter()
+            # The final partial chunk scans only its first ``left`` queries:
+            # the reference masks the rest, which touch neither carry.
+            arr, rows, last = self._chunk(c, base, min(n - c * chunk, chunk))
+            t1 = time.perf_counter()
+            ops.fcfs_stream(arr, rows, self._lut, tos, prio, free, count,
+                            shift, qos_t)
+            self.n_dispatches += 1
+            self.gen_s += t1 - t0
+            self.scan_s += time.perf_counter() - t1
+            shift = 0.0
+            base = last
+            horizon = base / scale
+            if horizon > _MAX_HORIZON:
+                raise ValueError(
+                    f"stream chunk spans {horizon:.0f}s of simulated time "
+                    f"(> {_MAX_HORIZON:.0f}s): one block outruns the "
+                    f"float32 envelope; raise rate_qps or shrink chunk")
+            if horizon > _MAX_HORIZON / 2.0:
+                # Rebase: the next chunk's gaps accumulate from 0 again, and
+                # the carry drops the same origin (the float32 value of the
+                # scaled origin) as it enters the next chunk.
+                shift = float(np.float32(np.float64(base) /
+                                         np.float64(scale)))
+                base = 0.0
+                rebases += 1
+            if probe is not None:
+                probe(c)
+        return StreamResult(rate=int(count.item()) / n, n_queries=n,
+                            rebases=rebases)

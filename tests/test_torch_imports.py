@@ -67,9 +67,14 @@ def _entry_points():
     from repro_torch.serving import (PoolEvaluator, PoolSimulator, PoolState,
                                      make_paper_setup, paper_workload,
                                      rescale)
+    from repro_torch.scenario import (ScenarioEngine, build_episode,
+                                      paper_simulator_plane,
+                                      tiered_simulator_plane)
+    from repro_torch.serving import StreamingSimulator, paper_spec
     from repro_torch.serving.engine import DEFAULT_CELLS, ClusterEngine
     from repro_torch.serving.instance import AWS_INSTANCES, MODEL_PROFILES
     space = SearchSpace((2, 2), (1.0, 2.0))
+    episode = build_episode("diurnal", n=10, window=5)
     pool_args = (MODEL_PROFILES["mtwnd"], [AWS_INSTANCES["g4dn"]],
                  paper_workload("mtwnd", n_queries=10))
     lm = get_model(get_arch("qwen2.5-3b").reduced())
@@ -99,6 +104,13 @@ def _entry_points():
         "rescale": lambda: rescale(RibbonOptimizer(space),
                                    PoolEvaluator(*pool_args),
                                    load_factors=[1.0, 1.5]),
+        "StreamingSimulator": lambda: StreamingSimulator(
+            *pool_args[:2], paper_spec("mtwnd")),
+        "paper_simulator_plane": lambda: paper_simulator_plane(
+            "mtwnd", episode),
+        "tiered_simulator_plane": lambda: tiered_simulator_plane(
+            "mtwnd", episode),
+        "ScenarioEngine": lambda: ScenarioEngine(episode, None, space),
     }
 
 
@@ -110,7 +122,11 @@ def _entry_points():
                                   "ssm_init_cache", "hybrid_init_params",
                                   "hybrid_init_cache", "PoolSimulator",
                                   "PoolEvaluator", "make_paper_setup",
-                                  "segment_from", "grid_from", "rescale"])
+                                  "segment_from", "grid_from", "rescale",
+                                  "StreamingSimulator",
+                                  "paper_simulator_plane",
+                                  "tiered_simulator_plane",
+                                  "ScenarioEngine"])
 def test_entry_point_without_device_raises_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card: the default device is valid")

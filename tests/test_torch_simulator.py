@@ -380,16 +380,25 @@ def test_unported_arguments_name_their_item(setups, kwargs, item):
 
 
 def test_unported_entry_points_name_their_item(setups):
-    """``segment_from`` (A-7) and ``tail_latency`` (A-9) run; the streaming
-    simulator (A-10) is still refused with its item."""
+    """``segment_from`` (A-7), ``tail_latency`` (A-9) and the streaming
+    simulator (A-10) run; the scenario engine's live plane is still refused
+    with its item (ROADMAP item 14)."""
     _, tsim_ = setups["mtwnd"]
     seg = tsim_.segment_from(tsim_.initial_state(), (1, 1, 1))
     _equal(seg.lat, tsim_.simulate((1, 1, 1)).lat)
     tail = tsim_.tail_latency((1, 1, 1))
     assert tail == tsim_.qos((1, 1, 1), telemetry=True).telemetry \
         .latency_percentile(99.0)
-    with pytest.raises(NotImplementedError, match="A-10"):
-        tsim.StreamingSimulator(tsim_.model, tsim_.types, None)
+    from repro_torch.scenario import LivePlane
+    from repro_torch.serving.pool import paper_spec
+    stream = tsim.StreamingSimulator(tsim_.model, tsim_.types,
+                                     paper_spec("mtwnd"), device=CPU)
+    assert stream.qos((1, 1, 1), 300).rate == float(
+        tsim.PoolSimulator(tsim_.model, tsim_.types,
+                           paper_spec("mtwnd").realize(300),
+                           device=CPU).qos((1, 1, 1)).rates)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        LivePlane(None, {}, 0.05)
 
 
 # ------------------------------------------ the kernel's plain version

@@ -2,8 +2,10 @@
 
     python3 chip_smoke.py
 
-Drives the port (``src/repro_torch``) on its main paths: the MT-WND
-serving pool at full width, RIBBON's own search over the FCFS pool
+Drives the port (``src/repro_torch``) on its main paths: the live serving
+pool of the paper's five models at full width (MT-WND on its kernel;
+CANDLE, ResNet50, VGG19 and DIEN, which run no kernel of ours), the live
+serve driver and recovery, RIBBON's own search over the FCFS pool
 simulator for the paper's five models, its load-change adaptation (paper
 §5.5) over the simulator's warm, routed and telemetry lanes, a streamed
 million-query evaluation, the scenario engine's episodes, and the
@@ -67,10 +69,28 @@ print a line and raise on failure:
    bucket 1..32, with forward times: eager (CUDA events, median of 30) and
    device-only (replayed from a CUDA graph, so without the host's launch
    cost);
+4b. CANDLE, ResNet50, VGG19 and DIEN at full width, fp32 (TF32 off), per
+   batch bucket 1..32: the card's output against a float64 copy of the
+   same module on the card, and at bucket 2 against the same weights'
+   forward on the CPU (each within 1e-3 x max |out|); eager (median of
+   single runs, CUDA events) and device-only (CUDA graph) times, the fp32
+   floor (``torch.utils.flop_counter``'s operations at 67 TFLOP/s), the
+   weights' bytes;
 5. live serving: ClusterEngine over three full-width cell types serves 80
    requests; prints the QoS rate and service percentiles;
 6. RIBBON's ask/tell loop over the live pool (up to 16 rounds), and its GP
    posterior on the card against the same fit on the CPU;
+5b. phase 5 for CANDLE, ResNet50, VGG19 and DIEN: each ClusterEngine warmed
+   up, 80 requests at 150 qps on (1, 1, 1) within 30 ms, QoS and service
+   percentiles, the memory its cells' weights hold;
+6b. the serve driver, ``repro_torch.launch.serve.serve`` with the
+   reference's defaults (60 queries at 40 qps, QoS within 200 ms against
+   0.9, bounds (4, 3, 2), budget 12) for the five models: best pool, price,
+   samples; then on mtwnd and vgg19 the recovery of
+   ``examples/serve_cluster.py`` (``launch.serve.recover``: the incumbent's
+   most-deployed type lost past its count, ``recover_from_failure`` with
+   budget 10), gated: the new optimum fits the reduced bounds and meets the
+   target, or the event says that none does;
 7. RIBBON's search path (the quickstart) on the card: ``make_paper_setup``
    for each of the five paper models, the homogeneous optimum
    (``best_homogeneous``); for mtwnd also ``run_ribbon`` (budget 80, start
@@ -111,7 +131,15 @@ print a line and raise on failure:
    400, spot-churn and tier-outage (the tiered plane: ``serving/fault.py``
    and ``serving/tiers.py``) at n 500, on the card and on the CPU, equal
    reports at their anchors; then diurnal-day at full size (1,000,000
-   queries, ``stream_chunk`` 4096) on the card at its anchors.
+   queries, ``stream_chunk`` 4096) on the card at its anchors;
+9b. the scenario engine over ``LivePlane``: spot-churn through a live
+   ClusterEngine of the first two cell types (bounds (3, 2), streams at 40
+   qps, 30-query probes, QoS within 30 ms) on mtwnd at n 500 and vgg19 at
+   n 200, the engine's GP on the card; gated: the plane is "live", the
+   phases and windows are the spec's, every window's, the last phase's and
+   the episode's QoS equal the share of the engine's own records within
+   30 ms (each committed segment's records, as the serve left them),
+   no phase sweep, waits >= 0, at least one probe.
 
 Launch counts are set to 0 just before phase 5 and read after phase 6
 (every MT-WND forward makes one embedding-bag launch for its 8 tables),
@@ -122,7 +150,12 @@ each of the cold, policy, telemetry and trace flavours launched, and no
 other kernel), again just before phase 7c and read after it (one
 stream-flavour launch per chunk, and no other launch), again just before
 phase 9 and read after it (one fcfs_scan launch per plane dispatch,
-printed by flavour, and no other kernel), and set to 0 again
+printed by flavour, and no other kernel), again just before phase 5b and
+read after it (no launch of any kernel of ours), just before each model's
+serve driver in phase 6b and read after its recovery (embedding_bag for
+mtwnd only, no other kernel), and just before each episode of phase 9b and
+read after it (embedding_bag for mtwnd only, no fcfs_scan: the live plane
+dispatches on the host), and set to 0 again
 just before each LM's serving runs and read just after
 them (qwen2.5-3b: one flash-attention launch per layer per prefill and one
 decode-attention launch per layer per step; mamba2-130m: one SSD-scan
@@ -149,6 +182,7 @@ the repository.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
@@ -180,14 +214,17 @@ from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
                                      per_head, ssd_scan_ref)
 from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
+from repro_torch.launch.serve import recover, serve  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step)
 from repro_torch.models import ssm as ssm_module  # noqa: E402
+from repro_torch.models import paper_models as pm  # noqa: E402
 from repro_torch.models.paper_models import (MTWND_PRESETS,  # noqa: E402
                                              make_random_batch, mtwnd_apply,
                                              mtwnd_init)
-from repro_torch.serving.engine import DEFAULT_CELLS, ClusterEngine  # noqa: E402
-from repro_torch.scenario import (ScenarioEngine,  # noqa: E402
+from repro_torch.serving.engine import (DEFAULT_CELLS,  # noqa: E402
+                                        ClusterEngine, _bucket)
+from repro_torch.scenario import (LivePlane, ScenarioEngine,  # noqa: E402
                                   build_episode, paper_simulator_plane,
                                   tiered_simulator_plane)
 from repro_torch.serving.instance import (AWS_INSTANCES,  # noqa: E402
@@ -332,6 +369,23 @@ BEFORE_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 CARD = {"smi": "not read"}
 
 PAPER_MODELS = ("mtwnd", "dien", "candle", "resnet50", "vgg19")
+# The four paper models that run no kernel of ours (the reference runs no
+# Pallas kernel for them), served at full width in phases 4b, 5b, 6b, 9b.
+NO_KERNEL_MODELS = ("candle", "resnet50", "vgg19", "dien")
+FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 rate outside the tensor cores
+# Phase 4b, fp32 forward on the card against a float64 copy of the same
+# module on the card, and against the same weights' fp32 forward on the
+# CPU, each relative to max |out|.  fp32 sums of up to 25,088 terms
+# (VGG19's first fc layer) through up to 19 layers, and cuDNN's choice of
+# conv algorithm (Winograd and FFT forms round more than a direct sum):
+# 1e-3 leaves that room, while a wrong pad, a transposed weight or an NCHW
+# flatten moves outputs by O(max |out|).
+PAPER_FWD_TOL = 1e-3
+# Phase 9b: spot-churn through LivePlane, qos_latency 30 ms (the example's
+# 10 s was chosen for a CPU), 40 qps, 30-query probes, the first two cell
+# types, bounds (3, 2).  mtwnd at the registry's n 500; vgg19 at n 200,
+# whose queries take some 10-70 ms each on cell1.
+LIVE_EPISODES = (("mtwnd", 500), ("vgg19", 200))
 # The streaming path's anchors: mtwnd's Table 3 pool, seed 0, 800 qps,
 # chunks of 4096; the reference's StreamingSimulator fed the port's stream
 # (jax 0.9.0, on the CPU): 981,041 of 1,000,000 within QoS, no rebase; at
@@ -1302,15 +1356,15 @@ def forward_phase() -> None:
     del model
 
 
-def serve_phase(engine: ClusterEngine, wl) -> int:
+def serve_phase(engine: ClusterEngine, wl, name: str = "mtwnd") -> int:
     engine.configure((1, 1, 1))
     rate = engine.serve(wl, qos_latency=0.03)
     lat, waits = engine.served_arrays()
     svc = (lat - waits) * 1e3
     if not 0.0 <= rate <= 1.0 or len(lat) != wl.n_queries:
         raise AssertionError(f"serve: rate {rate}, {len(lat)} records")
-    phase("serve", f"pool (1, 1, 1), {wl.n_queries} requests at 150 qps: "
-                   f"QoS {rate:.4f} within 30 ms; service p50 "
+    phase("serve", f"{name} pool (1, 1, 1), {wl.n_queries} requests at 150 "
+                   f"qps: QoS {rate:.4f} within 30 ms; service p50 "
                    f"{np.percentile(svc, 50):.4f} ms, p99 "
                    f"{np.percentile(svc, 99):.4f} ms; latency p99 "
                    f"{np.percentile(lat * 1e3, 99):.4f} ms")
@@ -1353,6 +1407,283 @@ def ribbon_phase(engine: ClusterEngine, wl) -> int:
     phase("ribbon", f"GP posterior card vs CPU: max |diff| mean {dm:.3g}, "
                     f"std {ds:.3g} (gates {GP_TOL[0]}, {GP_TOL[1]})")
     return forwards
+
+
+def _adaptive_ms(fn) -> tuple[float, float]:
+    """Eager (median of single runs, CUDA events) and device-only (CUDA
+    graph) milliseconds of ``fn``, with run counts scaled to its time so a
+    heavy forward takes some 0.5 s to time."""
+    fn()
+    once = median_event_ms(fn, 3)
+    runs = int(min(30, max(5, 300.0 / max(once, 1e-3))))
+    calls = int(min(20, max(2, 100.0 / max(once, 1e-3))))
+    replays = int(min(20, max(2, 300.0 / max(calls * once, 1e-3))))
+    return median_event_ms(fn, runs), graph_ms(fn, calls=calls,
+                                               replays=replays)
+
+
+def _flops(apply, model, batch) -> int:
+    """Floating-point operations of one forward, counted by
+    ``torch.utils.flop_counter`` (products and convolutions)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        apply(model, batch)
+    return counter.get_total_flops()
+
+
+def _to64(batch: dict) -> dict:
+    return {k: v.double() if v.is_floating_point() else v
+            for k, v in batch.items()}
+
+
+def paper_forward_phase() -> None:
+    """Phase 4b: CANDLE, ResNet50, VGG19 and DIEN at full width, fp32, per
+    batch bucket 1..32: the card's output against a float64 copy of the
+    same module on the card; at bucket 2 against the same weights' fp32
+    forward on the CPU; eager and device-only times, the fp32 floor, the
+    parameter bytes."""
+    for name in NO_KERNEL_MODELS:
+        spec = pm.PAPER_MODELS[name]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model = spec.init(gen, "full", "cuda")
+        size = sum(p.numel() * p.element_size() for p in model.parameters())
+        exact = copy.deepcopy(model).double()
+        worst, rows = 0.0, []
+        for b in BUCKETS:
+            batch = make_random_batch(name, "full", b, device="cuda")
+            out = spec.apply(model, batch)
+            want = spec.apply(exact, _to64(batch))
+            if out.shape != want.shape or out.shape[0] != b or not bool(
+                    torch.isfinite(out).all()):
+                raise AssertionError(f"{name} bucket {b}: bad output "
+                                     f"{tuple(out.shape)}")
+            rel = ((out.double() - want).abs().max()
+                   / want.abs().max()).item()
+            if not rel <= PAPER_FWD_TOL:
+                raise AssertionError(f"{name} bucket {b}: fp32 vs float64 "
+                                     f"{rel} x max |out|")
+            worst = max(worst, rel)
+            if b == 2:
+                at2 = batch, out
+            eager, dev = _adaptive_ms(lambda: spec.apply(model, batch))
+            flops = _flops(spec.apply, model, batch)
+            rows.append(f"{b}: {eager:.4f} / {dev:.4f} ms, floor "
+                        f"{flops / FP32_FLOPS_PER_S * 1e3:.4f} ms "
+                        f"({flops / 1e9:.3f} GFLOP)")
+        # On the CPU after the timings: its worker threads slow the host's
+        # launches for a while after it (scripts/probe_paper_models.py).
+        batch, out = at2
+        cpu_out = spec.apply(copy.deepcopy(model).cpu(),
+                             {k: v.cpu() for k, v in batch.items()})
+        cpu_rel = ((out.cpu() - cpu_out).abs().max()
+                   / cpu_out.abs().max()).item()
+        if not cpu_rel <= PAPER_FWD_TOL:
+            raise AssertionError(f"{name} bucket 2: card vs CPU "
+                                 f"{cpu_rel} x max |out|")
+        phase("forward", f"{name} full width, {size / 1e6:.1f} MB of "
+                         f"fp32 weights: fp32 vs float64 on the card, max "
+                         f"|diff| {worst:.3g} x max |out| over buckets "
+                         f"1..32; card vs CPU at bucket 2 {cpu_rel:.3g} "
+                         f"(gate {PAPER_FWD_TOL} each); per bucket, eager "
+                         f"(median, CUDA events) / device-only (CUDA graph), "
+                         f"fp32 floor at {FP32_FLOPS_PER_S / 1e12:.0f} "
+                         f"TFLOP/s: " + "; ".join(rows)
+                         + f"; on {CARD['smi']}")
+        del model, exact
+        torch.cuda.empty_cache()
+
+
+def _launch_counts() -> dict:
+    return {fn.__name__[:-5]: fn.launches for fn in COUNTED}
+
+
+def paper_serve_phase(wl) -> None:
+    """Phase 5b: phase 5's serving for CANDLE, ResNet50, VGG19 and DIEN at
+    full width (three cell types, warm-up, 80 requests at 150 qps on
+    (1, 1, 1) within 30 ms); no kernel of ours launches."""
+    reset_counts()
+    for name in NO_KERNEL_MODELS:
+        t0 = time.perf_counter()
+        engine = ClusterEngine(name, DEFAULT_CELLS, seed=0, device="cuda")
+        engine.warmup(max_batch=BUCKETS[-1])
+        weights = sum(p.numel() * p.element_size()
+                      for m in engine._params.values()
+                      for p in m.parameters())
+        held = torch.cuda.memory_allocated() / 1e9
+        serve_phase(engine, wl, name)
+        phase("serve", f"{name}: {weights / 1e9:.3f} GB of weights for the "
+                       f"three cell types ({held:.2f} GB allocated after "
+                       f"the warm-up); {time.perf_counter() - t0:.2f} s "
+                       f"(host clock, set-up and warm-up included); on "
+                       f"{CARD['smi']}")
+        del engine
+        torch.cuda.empty_cache()
+    launched = {k: n for k, n in _launch_counts().items() if n}
+    if launched:
+        raise AssertionError(f"live serving of {NO_KERNEL_MODELS}: kernels "
+                             f"of ours launched {launched}")
+    phase("launches", "no kernel of ours on the live serving of "
+                      + ", ".join(NO_KERNEL_MODELS))
+
+
+def serve_driver_phase() -> None:
+    """Phase 6b: ``repro_torch.launch.serve.serve`` with the reference's
+    defaults for the five paper models, then the recovery of
+    ``examples/serve_cluster.py`` (the incumbent's type lost past its
+    count, budget 10) on mtwnd and vgg19."""
+    for name in PAPER_MODELS:
+        reset_counts()
+        t0 = time.perf_counter()
+        opt, engine = serve(name, verbose=False, device="cuda")
+        secs = time.perf_counter() - t0
+        best = opt.trace.best_feasible()
+        if best is None:
+            raise AssertionError(f"serve {name}: no pool meets the target")
+        msg = (f"{name}: best pool {best.config} at ${best.cost:.2f}/h, QoS "
+               f"{best.qos_rate:.4f}, {opt.trace.n_samples} samples, "
+               f"{secs:.2f} s (host clock, set-up and warm-up included)")
+        if name in ("mtwnd", "vgg19"):
+            t0 = time.perf_counter()
+            new_opt, ev, lost_type, lost = recover(opt, engine)
+            secs = time.perf_counter() - t0
+            reduced = list(opt.space.bounds)
+            reduced[lost_type] -= lost
+            if ev.new_best is not None:
+                new = new_opt.trace.best_feasible()
+                if (tuple(new.config) != tuple(ev.new_best)
+                        or any(c > b for c, b in zip(new.config, reduced))
+                        or new.qos_rate < opt.qos_target):
+                    raise AssertionError(f"recovery {name}: {new} in "
+                                         f"bounds {reduced}")
+                got = (f"{ev.new_best} at ${ev.new_cost:.2f}/h, QoS "
+                       f"{new.qos_rate:.4f}")
+            else:
+                if new_opt.trace.best_feasible() is not None:
+                    raise AssertionError(f"recovery {name}: the event says "
+                                         "none is feasible, the trace not")
+                got = "no feasible pool"
+            msg += (f"; recovery after losing {lost} "
+                    f"'{DEFAULT_CELLS[lost_type].name}' cell(s), bounds "
+                    f"{tuple(reduced)}: {got} in {ev.samples_used} samples, "
+                    f"{secs:.2f} s")
+        counts = _launch_counts()
+        bag = counts.pop("embedding_bag")
+        if any(counts.values()) or (bag == 0) != (name != "mtwnd"):
+            raise AssertionError(f"serve {name}: launches {counts}, "
+                                 f"embedding_bag {bag}")
+        phase("serve", f"driver {msg}; embedding_bag launches {bag}, no other"
+                       f" kernel; on {CARD['smi']}")
+        del opt, engine
+        torch.cuda.empty_cache()
+
+
+class _Served:
+    """The latencies and waits of every segment a live plane measured, as
+    the engine's own records held them right after its serve, cut to the
+    prefix the scenario engine committed (the first ``commit`` after each
+    ``measure``).  Search probes serve but never commit, so stay out."""
+
+    def __init__(self, plane):
+        self.segments = []
+        measure, commit = plane.measure, plane.commit
+
+        def spy_measure(*args, **kwargs):
+            out = measure(*args, **kwargs)
+            lat, waits = plane.engine.served_arrays()
+            if len(lat) != len(out[0]):        # an empty pool: +inf
+                lat, waits = out
+            self.segments.append([lat, waits, None])
+            return out
+
+        def spy_commit(n):
+            if self.segments and self.segments[-1][2] is None:
+                self.segments[-1][2] = int(n)
+            return commit(n)
+
+        plane.measure, plane.commit = spy_measure, spy_commit
+
+    def arrays(self):
+        return (np.concatenate([s[0][:s[2]] for s in self.segments]),
+                np.concatenate([s[1][:s[2]] for s in self.segments]))
+
+
+def live_plane_phase() -> None:
+    """Phase 9b: spot-churn through ``LivePlane`` over a live
+    ``ClusterEngine`` (``examples/run_scenario.py --live``'s set-up, QoS
+    within 30 ms) on mtwnd and vgg19 at full width; the report held to the
+    spec and to the engine's own records; no fcfs_scan launch."""
+    for name, n in LIVE_EPISODES:
+        spec = build_episode("spot-churn", n=n)
+        cells = DEFAULT_CELLS[:2]
+        workloads = {d: paper_workload(name, seed=spec.seed,
+                                       n_queries=spec.n_base_queries,
+                                       rate_qps=40.0, batch_dist=d)
+                     for d in spec.batch_dists}
+        top = max(_bucket(int(w.batches.max())) for w in workloads.values())
+        engine = ClusterEngine(name, cells, seed=spec.seed, device="cuda")
+        engine.warmup(max_batch=top)
+        qos = 0.03
+        plane = LivePlane(engine, workloads, qos_latency=qos,
+                          probe_queries=30)
+        served = _Served(plane)
+        space = SearchSpace(bounds=(3, 2),
+                            prices=tuple(c.price for c in cells))
+        reset_counts()
+        t0 = time.perf_counter()
+        rep = ScenarioEngine(spec, plane, space, device="cuda").run()
+        secs = time.perf_counter() - t0
+        d = rep.to_dict()
+        lat, waits = served.arrays()
+        hit = lat <= qos
+        ends = [0]
+        for ph in spec.phases:
+            ends.append(ends[-1] + ph.n_queries)
+        starts = [w["start"] for w in d["windows"]]
+        checks = {
+            "plane": rep.plane == "live",
+            "phases": [(p.name, p.n_queries) for p in rep.phases]
+            == [(p.name, p.n_queries) for p in spec.phases],
+            "windows": starts == [0] + [w["end"] for w in d["windows"]][:-1]
+            and d["windows"][-1]["end"] == ends[-1]
+            and all(w["end"] - w["start"] <= spec.window
+                    and not any(w["start"] < e < w["end"] for e in ends)
+                    for w in d["windows"]),
+            "served": len(lat) == d["total_queries"] == ends[-1],
+            "last phase QoS": rep.phases[-1].qos_rate
+            == float(np.mean(hit[-rep.phases[-1].n_queries:])),
+            "window QoS": all(w["qos_rate"]
+                              == float(np.mean(hit[w["start"]:w["end"]]))
+                              for w in d["windows"]),
+            "no sweep": rep.final_qos_by_phase is None,
+            "waits": bool((waits >= 0).all()),
+            "evaluations": plane.n_evals >= 1,
+        }
+        counts = _launch_counts()
+        bag = counts.pop("embedding_bag")
+        checks["launches"] = not any(counts.values()) and (
+            (bag > 0) == (name == "mtwnd"))
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"live plane {name}: {failed} failed; "
+                                 f"launches {counts}, embedding_bag {bag}")
+        ok = np.isfinite(lat)
+        svc = (lat[ok] - waits[ok]) * 1e3
+        phase("live", f"spot-churn n {n} on {name} (cells "
+                      f"{[c.name for c in cells]}, bounds (3, 2), 40 qps, "
+                      f"QoS within {qos * 1e3:.0f} ms, target "
+                      f"{spec.qos_target}): QoS {d['qos_rate']!r}, "
+                      f"${d['total_cost']!r}, {d['bo_evals']} evaluations "
+                      f"({plane.n_evals} probes), {d['n_windows']} windows "
+                      f"({d['violation_windows']} violating), final "
+                      f"{tuple(d['final_config'])}, actions "
+                      f"{[a['kind'] for a in d['actions']]}; service p50 "
+                      f"{np.percentile(svc, 50):.4f} ms, p99 "
+                      f"{np.percentile(svc, 99):.4f} ms; {secs:.2f} s (host "
+                      f"clock, the GP on the card); every gate held; "
+                      f"embedding_bag launches {bag}, no fcfs_scan; on "
+                      f"{CARD['smi']}")
+        del plane, engine
+        torch.cuda.empty_cache()
 
 
 def _search(model: str, device: str) -> dict:
@@ -2369,6 +2700,7 @@ def main() -> int:
     fcfs_lanes = simulator_phase()
     stream_phase()
     forward_phase()
+    paper_forward_phase()
 
     # Main path 1: the MT-WND serving pool and RIBBON's search over it.
     engine = ClusterEngine("mtwnd", DEFAULT_CELLS, seed=0, device="cuda")
@@ -2388,6 +2720,11 @@ def main() -> int:
                       f"path = 1 x {forwards} forwards (each pools all "
                       f"{CFG['n_tables']} tables)")
     del engine
+
+    # Main path 1b: the other four paper models served live, the serve
+    # driver over all five, and recovery on the live engine.
+    paper_serve_phase(wl)
+    serve_driver_phase()
 
     # Main path 2: RIBBON's own search over the pool simulator.
     reset_counts()
@@ -2461,6 +2798,9 @@ def main() -> int:
     phase("launches", f"fcfs_scan: {sc_launches} launches on the scenario "
                       f"path = 1 x {sc_dispatches} simulator dispatches, by "
                       f"flavour {sc_flavour}; no other kernel")
+
+    # Main path 6b: an episode through the live plane (counts read inside).
+    live_plane_phase()
 
     def launches(kernel: str) -> tuple[int, dict]:
         counts = {arch: c[kernel] for arch, c in by_path.items() if c[kernel]}

@@ -1,1 +1,2 @@
-"""Step builders of the serving path (counterpart of ``repro/launch``)."""
+"""Step builders of the serving path and the live serving driver
+(``launch.serve``); counterpart of ``repro/launch``."""

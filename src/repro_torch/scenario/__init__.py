@@ -2,10 +2,11 @@
 declarative multi-phase traffic episodes driving the full adapt loop
 (monitor detection → grid rescale / failure recovery / repricing →
 reconfigure) over the simulator plane, whose every dispatch is one launch
-of the FCFS kernel on the card.  Tier-scoped events (preemption storms,
-tier outages, price spikes) drive the hybrid capacity-tier surface on planes
-built with ``tiered_simulator_plane``.  ``LivePlane`` is not ported yet and
-refuses with its ROADMAP item."""
+of the FCFS kernel on the card, or over ``LivePlane``, the measured plane:
+a live ``ClusterEngine`` that executes every query of the episode on its
+device.  Tier-scoped events (preemption storms, tier outages, price spikes)
+drive the hybrid capacity-tier surface on planes built with
+``tiered_simulator_plane``."""
 
 from .engine import ScenarioEngine
 from .planes import (LivePlane, SimulatorPlane, paper_simulator_plane,

@@ -48,8 +48,11 @@ Both planes speak one small protocol:
 ``PoolSimulator.segment_from``), adaptation searches through the grid lane,
 and the episode summary sweeps every phase in one stacked service-table
 dispatch; every dispatch is one launch of the FCFS kernel
-(``n_dispatches`` counts them).  ``LivePlane``, the measured path over a
-live ``ClusterEngine``, is not ported yet and refuses with its ROADMAP item.
+(``n_dispatches`` counts them).  ``LivePlane`` is the measured path: the
+same loop drives a ``ClusterEngine`` that executes every query on the real
+device — per-cell busy times thread across segments through
+``ClusterEngine.serve(initial_busy=...)``; its episode clock and carried
+``PoolState`` are the same float64 host code as the reference's.
 
 Counterpart of ``repro/scenario/planes.py``.
 """
@@ -455,16 +458,172 @@ class SimulatorPlane(_EpisodeClock):
 
 
 class LivePlane(_EpisodeClock):
-    """Measured plane: the scenario loop over a live ``ClusterEngine``
-    (the reference's ``LivePlane``).  Not ported yet: it needs the live
-    plane's recovery and the other paper models first."""
+    """Measured plane: the same scenario loop over a live ``ClusterEngine``.
+
+    Every measurement executes the real models on the engine's device;
+    service times are wall clock (scaled by cell speed), so results are
+    *measured, not simulated* — and correspondingly expensive.  Search
+    oracles serve only a short probe prefix per candidate
+    (``probe_queries``) to bound the cost of an adaptation; probes never
+    touch the carried episode state.  ``engine`` is a
+    ``repro_torch.serving.engine.ClusterEngine``; ``qos_latency`` must be
+    supplied (live cells measure a different speed regime than the
+    analytical instance profiles).  The carried state holds per-cell
+    next-free times in unscaled episode seconds; ``measure`` converts to
+    the serve's scaled virtual-time frame and back.  Counterpart of the
+    reference's ``LivePlane``, the same float64 host code.
+    """
 
     name = "live"
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LivePlane is not ported to repro_torch yet (ROADMAP item 14, "
-            "the rest of the live plane)")
+    def __init__(self, engine, workloads: dict[str, Workload],
+                 qos_latency: float, time_scale: float = 1.0,
+                 probe_queries: int = 40, max_slots: int = 64):
+        self.engine = engine
+        self.workloads = dict(workloads)
+        self.qos_latency = float(qos_latency)
+        self.time_scale = float(time_scale)
+        self.probe_queries = int(probe_queries)
+        self.n_evals = 0
+        self._n_slots = int(max_slots)
+        self._reset_clock(False)     # cold until an episode begins
+
+    @property
+    def base_rate(self) -> float:
+        return next(iter(self.workloads.values())).rate_qps
+
+    @property
+    def type_tiers(self) -> tuple[str, ...]:
+        return tuple(getattr(ct, "tier", "on_demand")
+                     for ct in self.engine.cell_types)
+
+    def configure(self, config) -> None:
+        self.engine.configure(tuple(int(c) for c in config))
+
+    def apply_capacity_loss(self, type_index: int, count: int) -> None:
+        """The market reclaims live cells: they fail in place and keep
+        failing until the next re-provisioning `configure`."""
+        self.engine.preempt(type_index, count)
+
+    def apply_price(self, type_index: int, price: float) -> None:
+        self.engine.cell_types[type_index].price = float(price)
+
+    def phase_stream(self, dist: str, n: int, factor: float) -> Workload:
+        return _prefix(self.workloads[dist].scaled(factor), n)
+
+    @staticmethod
+    def _no_routing(policy) -> None:
+        if policy is not None:
+            raise ValueError("the live plane dispatches FCFS on the host; "
+                             "routing policies are simulator-plane only")
+
+    def measure(self, dist: str, workload: Workload, config, *, policy=None):
+        self._no_routing(policy)
+        self.configure(config)
+        total = int(sum(int(c) for c in config))
+        initial = None
+        if self._carry and total > 0:
+            rel = (np.asarray(self._state.free[:total], dtype=np.float64)
+                   - self._state.clock)
+            initial = rel * self.time_scale
+            # Report the backlog in unscaled episode seconds (the
+            # simulator plane's frame), not the serve's stretched
+            # virtual-time frame.
+            a0 = (float(workload.arrivals[0]) if workload.n_queries
+                  else 0.0)
+            self.last_carried_wait = float(
+                np.maximum(rel - a0, 0.0).sum())
+        else:
+            self.last_carried_wait = 0.0
+        self.engine.serve(workload, self.qos_latency,
+                          time_scale=self.time_scale, initial_busy=initial)
+        lat, waits = self.engine.served_arrays()
+        self._pending = None
+        if len(lat) < workload.n_queries:
+            # an empty/fully-failed pool serves nothing: every query
+            # violates (the simulator plane's +inf convention); the carry
+            # passes through unchanged
+            n = workload.n_queries
+            return np.full(n, np.inf), np.full(n, np.inf)
+        if self._carry:
+            # Snapshot the dispatch trace now — search probes between this
+            # measure and the engine's commit overwrite engine.records.
+            recs = self.engine.records
+            self._pending = (
+                np.asarray([r.slot for r in recs], dtype=np.int64),
+                np.asarray([r.arrival + r.latency for r in recs],
+                           dtype=np.float64),
+                np.asarray(initial if initial is not None
+                           else np.zeros(total), dtype=np.float64),
+                np.asarray(workload.arrivals, dtype=np.float64),
+                total,
+            )
+        return lat, waits
+
+    def commit(self, n_served: int) -> None:
+        """Fold the first ``n_served`` served queries of the last measured
+        segment into the carried per-cell state."""
+        if not self._carry or self._pending is None:
+            return
+        slots, fins, initial, arr, total = self._pending
+        self._pending = None
+        n = int(n_served)
+        busy = initial.copy()
+        # Per-cell virtual finishes are nondecreasing: max == last.
+        np.maximum.at(busy, slots[:n], fins[:n])
+        free = self._state.free.copy()
+        free[:total] = self._state.clock + busy / self.time_scale
+        self._state = PoolState(free=free, clock=self._state.clock)
+        if n > 0:
+            self._local_now = float(arr[n - 1])
+
+    def grid_evaluator(self, dist: str):
+        return None                      # no batched path on the live plane
+
+    def oracle(self, dist: str, factor: float, *, policy=None):
+        self._no_routing(policy)
+        probe = _prefix(self.workloads[dist].scaled(factor),
+                        self.probe_queries)
+
+        def evaluate(cfg) -> float:
+            self.configure(cfg)
+            self.n_evals += 1
+            return float(self.engine.serve(probe, self.qos_latency,
+                                           time_scale=self.time_scale))
+        return evaluate
+
+    def warm_oracle(self, dist: str, factor: float, *, policy=None):
+        """Measured what-if scoring from the carried per-cell state: each
+        candidate probe serves with ``initial_busy`` set to the remap of the
+        live pool's backlog onto that candidate (survivors keep in-flight
+        work, added cells start idle) — the live analogue of the
+        simulator's warm candidate lanes.  Probes still never touch the
+        carried episode state."""
+        self._no_routing(policy)
+        cs = self.candidate_state()
+        if cs is None:
+            return self.oracle(dist, factor)
+        state, dep = cs
+        probe = _prefix(self.workloads[dist].scaled(factor),
+                        self.probe_queries)
+
+        def evaluate(cfg) -> float:
+            cfgt = tuple(int(c) for c in cfg)
+            self.configure(cfgt)
+            self.n_evals += 1
+            total = sum(cfgt)
+            rel = (np.asarray(state.remap(dep, cfgt, state.clock,
+                                          warmup=self._cold_starts
+                                          ).free[:total],
+                              dtype=np.float64) - state.clock)
+            return float(self.engine.serve(
+                probe, self.qos_latency, time_scale=self.time_scale,
+                initial_busy=rel * self.time_scale))
+        return evaluate
+
+    def phase_sweep(self, config, phases, *, policy=None,
+                    states=None) -> None:
+        return None                      # re-serving every phase is not free
 
 
 def paper_simulator_plane(model_name: str, spec: ScenarioSpec,

@@ -3,9 +3,11 @@ workloads, the instance catalog, the FCFS pool simulator (cold, warm,
 routed and telemetry lanes), pool evaluation, routing policies, the
 telemetry plane, the autoscaler, fault handling (``serving.fault``), the
 capacity tiers (``serving.tiers``), the streaming simulator and the live
-serving plane (``serving.engine``)."""
+serving plane (``serving.engine``: ``ClusterEngine`` over cells of any of
+the paper's five models)."""
 
 from .autoscaler import LoadMonitor, ScaleEvent, rescale
+from .engine import DEFAULT_CELLS, CellType, ClusterEngine, ServingCell
 from .fault import (fail_instances, recover_from_capacity_change,
                     recover_from_failure, reprice)
 from .handoff import from_fields
@@ -40,6 +42,7 @@ __all__ = [
     "Telemetry", "BUCKET_EDGES", "N_BUCKETS",
     "RoutingPolicy", "NAMED_POLICIES", "named_policy",
     "LoadMonitor", "ScaleEvent", "rescale", "from_fields",
+    "CellType", "ClusterEngine", "ServingCell", "DEFAULT_CELLS",
     "fail_instances", "recover_from_capacity_change",
     "recover_from_failure", "reprice",
     "CapacityTier", "TIERS", "TIER_NAMES", "TierHazard", "SpotPriceProcess",

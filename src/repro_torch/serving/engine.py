@@ -17,7 +17,7 @@ records.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -95,7 +95,9 @@ class ClusterEngine:
                  device=None):
         self.device = resolve_device(device)
         self.model_name = model_name
-        self.cell_types = list(cell_types)
+        # Copies: a repricing (``LivePlane.apply_price``) changes this
+        # engine's cell types, never the caller's (``DEFAULT_CELLS``).
+        self.cell_types = [replace(ct) for ct in cell_types]
         self.model = PAPER_MODELS[model_name]
         self.hedge_threshold = hedge_threshold
         self._params = {}
@@ -245,7 +247,7 @@ DEFAULT_CELLS = [
     CellType("cell4", price=4.8, chips=4, speed=3.4),
     CellType("cell8", price=9.6, chips=8, speed=6.0),
 ]
-"""Three cell types at full MT-WND width.  The prices and speed factors are
-the reference's illustrative values (``DEFAULT_TPU_CELLS``), not
-measurements of any chip.  On one card every cell maps to the one device
-and ``speed`` emulates the heterogeneity, as the reference does on a CPU."""
+"""Three cell types at the served model's full width.  The prices and speed
+factors are the reference's illustrative values (``DEFAULT_TPU_CELLS``), not
+measurements of any chip.  On one card every cell maps to the one device and
+``speed`` emulates the heterogeneity, as the reference does on a CPU."""

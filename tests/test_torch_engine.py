@@ -1,9 +1,12 @@
 """Port parity: the live serving plane (``ClusterEngine``, ``Workload``,
-``WorkloadSpec``) in PyTorch against ``repro.serving``, and the whole
-slice: RIBBON choosing a pool from the engine's measured QoS.
+``WorkloadSpec``) in PyTorch against ``repro.serving``, for each of the
+paper's five models, and the whole slice: RIBBON choosing a pool from the
+engine's measured QoS.
 
 ``ServingCell.execute`` is replaced in both packages by the same
-deterministic service time per (cell type, batch bucket), so the FCFS
+deterministic service time per (model, cell type, batch bucket), the bucket
+read from the batch's leading dimension whatever the model's input names,
+so the FCFS
 dispatch, hedging and QoS counting, which are the same float64 host code,
 must give identical records.  The reference's ``serving`` package is
 imported inside a fixture: on jax versions without
@@ -38,14 +41,21 @@ def ref():
     return engine, workload
 
 
+# Service-time scale per model: the conv nets slower than the recommenders.
+MODEL_SCALE = {"candle": 0.5, "resnet50": 3.0, "vgg19": 6.0, "mtwnd": 1.0,
+               "dien": 2.0}
+
+
 def _service_time(self, batch):
-    """Deterministic stand-in for a measured execution: 3 ms at batch 1,
-    growing with the bucket, divided by the cell's speed."""
+    """Deterministic stand-in for a measured execution: 3 ms at batch 1
+    (scaled per model), growing with the bucket, divided by the cell's
+    speed."""
     if self.failed:
         raise RuntimeError(f"cell {self.cell_type.name} is failed")
-    bucket = int(batch["dense"].shape[0])
+    bucket = int(next(iter(batch.values())).shape[0])
     self.n_served += 1
-    return 0.003 * (1.0 + 0.25 * np.log2(bucket)) / self.cell_type.speed
+    return (0.003 * MODEL_SCALE[self.model_name]
+            * (1.0 + 0.25 * np.log2(bucket)) / self.cell_type.speed)
 
 
 @pytest.fixture
@@ -60,9 +70,9 @@ def _cells(cls):
             for n, p, s in zip(NAMES, PRICES, SPEEDS)]
 
 
-def _engines(ref, **kw):
-    jeng = ref[0].ClusterEngine("mtwnd", _cells(ref[0].CellType), **kw)
-    teng_ = teng.ClusterEngine("mtwnd", _cells(teng.CellType), device=CPU,
+def _engines(ref, model="mtwnd", **kw):
+    jeng = ref[0].ClusterEngine(model, _cells(ref[0].CellType), **kw)
+    teng_ = teng.ClusterEngine(model, _cells(teng.CellType), device=CPU,
                                **kw)
     return jeng, teng_
 
@@ -90,6 +100,24 @@ def test_serve_matches_reference_record_for_record(patched, config, hedge):
     assert _records(teng_) == _records(jeng)
     for a, b in zip(teng_.served_arrays(), jeng.served_arrays()):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("model", ["candle", "resnet50", "vgg19", "mtwnd",
+                                   "dien"])
+def test_serve_matches_reference_for_every_paper_model(patched, model):
+    """Each paper model's engine: batches of its own inputs per bucket, the
+    same records as the reference's, hedging on."""
+    jeng, teng_ = _engines(patched, model=model, hedge_threshold=0.004)
+    jw, tw = _workloads(patched, rate=200.0)
+    for e in (jeng, teng_):
+        e.configure((2, 1, 1))
+    assert teng_.serve(tw, qos_latency=0.02) == jeng.serve(jw,
+                                                           qos_latency=0.02)
+    assert _records(teng_) == _records(jeng)
+    assert len({r["latency"] for r in _records(teng_)}) > 10
+    buckets = {int(next(iter(teng_._batch("smoke", b).values())).shape[0])
+               for b in (1, 8, 32)}
+    assert buckets == {1, 8, 32}
 
 
 @pytest.mark.parametrize("time_scale", [1.0, 0.5])
@@ -215,7 +243,16 @@ def test_ribbon_over_live_engine_matches_reference(patched, qos_target,
 
 
 def test_unpatched_smoke_serve_on_cpu():
-    eng = teng.ClusterEngine("mtwnd", _cells(teng.CellType), device=CPU)
+    _unpatched_serve("mtwnd")
+
+
+@pytest.mark.parametrize("model", ["candle", "resnet50", "vgg19", "dien"])
+def test_unpatched_smoke_serve_of_the_other_paper_models(model):
+    _unpatched_serve(model)
+
+
+def _unpatched_serve(model):
+    eng = teng.ClusterEngine(model, _cells(teng.CellType), device=CPU)
     eng.warmup(max_batch=8)
     eng.configure((1, 1, 0))
     wl = twl.WorkloadSpec(seed=0, rate_qps=150.0, median_batch=8,

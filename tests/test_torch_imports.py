@@ -53,6 +53,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert {"repro_torch.serving.telemetry", "repro_torch.serving.routing",
             "repro_torch.serving.autoscaler",
             "repro_torch.serving.handoff"} <= set(modules)
+    assert {"repro_torch.launch.serve",
+            "repro_torch.models.paper_models"} <= set(modules)
     bad = [m for m in loaded if m == "jax" or m.startswith(("jax.", "jaxlib"))
            or m == "repro" or m.startswith("repro.")]
     assert bad == []
@@ -62,7 +64,10 @@ def _entry_points():
     from repro_torch.core import RibbonOptimizer, SearchSpace, run_ribbon
     from repro_torch.configs import get_arch
     from repro_torch.core.gp import GaussianProcess
-    from repro_torch.models.paper_models import make_random_batch, mtwnd_init
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.paper_models import (PAPER_MODELS,
+                                                 make_random_batch,
+                                                 mtwnd_init)
     from repro_torch.models.transformer import get_model, lm_from_numpy
     from repro_torch.serving import (PoolEvaluator, PoolSimulator, PoolState,
                                      make_paper_setup, paper_workload,
@@ -111,6 +116,9 @@ def _entry_points():
         "tiered_simulator_plane": lambda: tiered_simulator_plane(
             "mtwnd", episode),
         "ScenarioEngine": lambda: ScenarioEngine(episode, None, space),
+        "serve": lambda: serve("vgg19", verbose=False),
+        **{f"{name}_init": (lambda m=m: m.init(torch.Generator(), "smoke"))
+           for name, m in PAPER_MODELS.items() if name != "mtwnd"},
     }
 
 
@@ -126,7 +134,9 @@ def _entry_points():
                                   "StreamingSimulator",
                                   "paper_simulator_plane",
                                   "tiered_simulator_plane",
-                                  "ScenarioEngine"])
+                                  "ScenarioEngine", "serve", "candle_init",
+                                  "resnet50_init", "vgg19_init",
+                                  "dien_init"])
 def test_entry_point_without_device_raises_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card: the default device is valid")

@@ -17,7 +17,9 @@ against ``repro.scenario``.
   those episodes are held by replay: every plane and evaluator call the
   reference's run made (its configs, segments, commits, deploys, what-if
   sweeps) is made again on the port's plane, and every result and carry
-  must be equal bit for bit.  ``LivePlane`` refuses, naming its item.
+  must be equal bit for bit.  ``LivePlane`` is held to the reference in
+  ``tests/test_torch_live_plane.py``; here, that it refuses what only the
+  simulator plane offers (routing policies).
 """
 
 import dataclasses
@@ -212,8 +214,16 @@ def test_spec_validation(ref):
 
 
 def test_live_plane_is_refused_with_its_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        ts.LivePlane(None, {}, 0.05)
+    """The live plane exists (ROADMAP item 14) and refuses routing
+    policies, which are the simulator plane's alone."""
+    from repro_torch.serving.engine import CellType, ClusterEngine
+    engine = ClusterEngine("mtwnd", [CellType("c", 1.0, preset="smoke")],
+                           device=CPU)
+    wl = tpool.paper_workload(MODEL, n_queries=20)
+    plane = ts.LivePlane(engine, {"lognormal": wl}, 0.05)
+    assert plane.name == "live" and plane.grid_evaluator("lognormal") is None
+    with pytest.raises(ValueError, match="simulator-plane only"):
+        plane.oracle("lognormal", 1.0, policy="hedged")
 
 
 # ---------------------------------------------------- the simulator plane

@@ -380,9 +380,9 @@ def test_unported_arguments_name_their_item(setups, kwargs, item):
 
 
 def test_unported_entry_points_name_their_item(setups):
-    """``segment_from`` (A-7), ``tail_latency`` (A-9) and the streaming
-    simulator (A-10) run; the scenario engine's live plane is still refused
-    with its item (ROADMAP item 14)."""
+    """``segment_from`` (A-7), ``tail_latency`` (A-9), the streaming
+    simulator (A-10) and the scenario engine's live plane (ROADMAP item 14,
+    no longer refused) run."""
     _, tsim_ = setups["mtwnd"]
     seg = tsim_.segment_from(tsim_.initial_state(), (1, 1, 1))
     _equal(seg.lat, tsim_.simulate((1, 1, 1)).lat)
@@ -397,8 +397,14 @@ def test_unported_entry_points_name_their_item(setups):
         tsim.PoolSimulator(tsim_.model, tsim_.types,
                            paper_spec("mtwnd").realize(300),
                            device=CPU).qos((1, 1, 1)).rates)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        LivePlane(None, {}, 0.05)
+    from repro_torch.serving.engine import CellType, ClusterEngine
+    engine = ClusterEngine("mtwnd", [CellType("c", 1.0, preset="smoke")],
+                           device=CPU)
+    wl = paper_spec("mtwnd").realize(20)
+    plane = LivePlane(engine, {"lognormal": wl}, 0.05)
+    plane.begin_episode(carry=True)
+    lat, waits = plane.measure("lognormal", wl, (1,))
+    assert len(lat) == 20 and (waits >= 0).all() and (lat >= waits).all()
 
 
 # ------------------------------------------ the kernel's plain version

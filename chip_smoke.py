@@ -8,11 +8,13 @@ CANDLE, ResNet50, VGG19 and DIEN, which run no kernel of ours), the live
 serve driver and recovery, RIBBON's own search over the FCFS pool
 simulator for the paper's five models, its load-change adaptation (paper
 §5.5) over the simulator's warm, routed and telemetry lanes, a streamed
-million-query evaluation, the scenario engine's episodes, and the
-serving paths of three LMs
-at full width and depth (qwen2.5-3b, dense GQA; mamba2-130m, Mamba-2 SSM;
-zamba2-2.7b, Mamba-2 with a shared attention block), in phases that each
-print a line and raise on failure:
+million-query evaluation, the scenario engine's episodes, RIBBON over
+H100 serving cells, and the serving paths of eight LMs at full width and
+depth (qwen2.5-3b, dense GQA, with a bf16 and with an int8 KV cache;
+mamba2-130m, Mamba-2 SSM; zamba2-2.7b, Mamba-2 with a shared attention
+block; minicpm3-4b, MLA; olmoe-1b-7b, MoE; internvl2-1b, a VLM's patch
+prefix; whisper-tiny, encoder-decoder), in phases that each print a line
+and raise on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles every CUDA kernel from ``src/repro_torch/csrc`` (nvcc,
@@ -25,13 +27,17 @@ print a line and raise on failure:
    LM prefill's shape (B 4, S 2000, H 16, KH 2, D 128, causal) and
    window 256, MHA, MQA, D 80, S 1, non-causal S 333, packed q/k/v
    views, S 65, a window of 100 whose edge falls inside a tile, D 80
-   non-causal, packed views at D 80 and zamba2-2.7b's shared block
-   (S 2048, H 32, D 80, window 4096);
+   non-causal, packed views at D 80, zamba2-2.7b's shared block
+   (S 2048, H 32, D 80, window 4096), minicpm3-4b's MLA prefill (H 40,
+   D 96, v zero beyond 64), the whisper encoder (S 1500, non-causal), its
+   cross attention (S 400 over T 1500, non-causal) and internvl2-1b's
+   prefill (H 14 over KH 2: G 7);
    decode_attention at the decode step's shape (B 4, T 2048, KH 2, G 8,
    D 128, the last 48 slots empty) and T 1999, MQA with D 80, MHA, empty
    slots at the front, a cache with no valid slot, T 127 and 193, G 1 at
    D 80 on a wrapped ring, in one split and in 8, 16 splits of which 8 are
-   empty, and G 32; ssd_scan at mamba2-130m's and zamba2-2.7b's prefill
+   empty, G 32, G 7 at T 2096 (internvl2-1b) and T 1500 every slot valid
+   (whisper's cross attention); ssd_scan at mamba2-130m's and zamba2-2.7b's prefill
    shapes (B 4, L 2048; H 24, N 128 and H 80, N 64; P 64, G 1) with x, b
    and c strided views of one packed conv output, a ragged L 2000, L 1,
    G 2 and a ragged P tile; each in fp32 and bf16 (bf16 on the
@@ -113,10 +119,17 @@ print a line and raise on failure:
    stream launch a chunk: 245 and no other launch; the host-clock time
    and its share spent making chunks printed), and (1, 0, 0) at 0.05 qps
    over 3 x 4096 + 100 queries on card and CPU (1.0, 4 rebases);
-8. LM serving, for each of the three LMs, with random weights from a seed:
-   4 requests (2000 prompt tokens, max_len 2048 for qwen2.5-3b; 2048 and
-   2096 for the SSM and hybrid LMs, so their plain path runs the
-   reference's 256-token chunks), prefill then 48 greedy decode steps.
+7d. RIBBON over pools of H100 serving cells (``serving.cells``, the
+   reference's ``bench_tpu_cells`` procedure over ``H100_CELLS``, modelled
+   rates): homogeneous baseline, exhaustive optimum, RIBBON's pick and
+   samples; host code, printed, not gated;
+8. LM serving, for each of the eight LMs, with random weights (and a
+   VLM's patch or whisper's frame embeddings) from a seed: 4 requests
+   (2000 prompt tokens, max_len 2048 for qwen2.5-3b with either cache;
+   2048 and 2096 for the SSM, hybrid, MLA and MoE LMs, so the SSM LMs'
+   plain path runs the reference's 256-token chunks; 256 patches and 1792
+   tokens, 2096, for internvl2-1b; 1500 frames and 400 tokens, 448, for
+   whisper-tiny), prefill then 48 greedy decode steps.
    First in fp32, the kernel path against the plain path teacher-forced on
    the kernel path's tokens (prefill and every step's logits within 1e-4 x
    max |logits|, the same greedy tokens); then in bf16, the reference's
@@ -125,7 +138,10 @@ print a line and raise on failure:
    tokens, and each bf16 path's agreement with the fp32 kernel path's
    tokens (printed); then device-only prefill and decode-step times from
    CUDA graphs.  For the SSM and hybrid LMs the fp32 gate widens by the
-   plain path's own distance from a run whose scan is float64;
+   plain path's own distance from a run whose scan is float64; for the MoE
+   LM the plain path runs the kernel path's expert picks (``RoutingTape``;
+   the tokens whose own picks differ are counted); its bf16 serving holds
+   every MoE router in float32;
 9. the scenario engine (``repro_torch.scenario``) over mtwnd's simulator
    plane, the engine's GP on the host: diurnal-day at n 2000 / window
    400, spot-churn and tier-outage (the tiered plane: ``serving/fault.py``
@@ -161,11 +177,19 @@ them (qwen2.5-3b: one flash-attention launch per layer per prefill and one
 decode-attention launch per layer per step; mamba2-130m: one SSD-scan
 launch per layer per prefill; zamba2-2.7b: one SSD-scan launch per Mamba-2
 layer and one flash-attention launch per shared-block use per prefill, one
-decode-attention launch per shared-block use per step; the attention and
-SSD-scan kernels' launches also by input type: the fp32 run's in float32,
-the rest in bfloat16). Then one JSON line gives each kernel's design,
+decode-attention launch per shared-block use per step; qwen2.5-3b with the
+int8 cache as without; minicpm3-4b: one flash-attention launch per layer
+per prefill, none in a step (MLA decodes in latent space, as the
+reference, with no kernel); olmoe-1b-7b and internvl2-1b: one flash launch
+per layer per prefill and one decode launch per layer per step;
+whisper-tiny: per prefill one flash launch per encoder layer and two per
+decoder layer (self and cross attention), per step two decode launches
+per decoder layer; the attention and SSD-scan kernels' launches also by
+input type: the fp32 run's in float32, the rest in bfloat16). Then one JSON line gives each kernel's design,
 launches, error against its plain version and times at its path's shape
-(for the attention and SSD-scan kernels also launches by type): kernel,
+(for the attention and SSD-scan kernels also launches by type; for the
+attention kernels also their times and bounds at the other paths'
+shapes): kernel,
 plain version and library call device-only (CUDA graph) and eager, and the
 bound (bytes over the card's memory rate or operations over its rate for
 their type, bf16 tensor or fp32, whichever is larger); for fcfs_scan also
@@ -183,12 +207,15 @@ the repository.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import subprocess
 import sys
 import time
+from collections import deque
 from contextlib import contextmanager, nullcontext
+from functools import partial
 from pathlib import Path
 from typing import NamedTuple
 
@@ -217,6 +244,7 @@ from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
 from repro_torch.launch.serve import recover, serve  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step)
+from repro_torch.models import layers as layers_module  # noqa: E402
 from repro_torch.models import ssm as ssm_module  # noqa: E402
 from repro_torch.models import paper_models as pm  # noqa: E402
 from repro_torch.models.paper_models import (MTWND_PRESETS,  # noqa: E402
@@ -233,6 +261,9 @@ from repro_torch.serving.instance import (AWS_INSTANCES,  # noqa: E402
                                           service_table_for,
                                           service_time_lut)
 from repro_torch.serving.autoscaler import LoadMonitor, rescale  # noqa: E402
+from repro_torch.serving import cells as cell_catalog  # noqa: E402
+from repro_torch.serving.cells import LLM_PROFILE, search_cells  # noqa: E402
+from repro_torch.serving.instance import H100_CELLS  # noqa: E402
 from repro_torch.serving.pool import (PoolEvaluator,  # noqa: E402
                                       best_homogeneous, make_paper_setup,
                                       paper_bucketed_spec, paper_spec,
@@ -279,20 +310,28 @@ ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # output by about 0.5·sqrt(64)/T, some 2e-3: 25x the slack, and the mean
 # gate fails.
 ATTN_MEAN_SLACK = 2 ** -8
-# (label, B, S, H, KH, D, causal, window)
-FLASH_CASES = [("prefill", 4, 2000, 16, 2, 128, True, 0),
-               ("window 256", 2, 1000, 16, 2, 128, True, 256),
-               ("MHA", 2, 512, 8, 8, 64, True, 0),
-               ("MQA", 2, 512, 8, 1, 128, True, 0),
-               ("D 80", 2, 384, 4, 4, 80, True, 0),
-               ("S 1", 4, 1, 16, 2, 128, True, 0),
-               ("non-causal S 333", 1, 333, 4, 2, 128, False, 0),
-               ("packed qkv views", 2, 257, 8, 2, 128, True, 0),
-               ("S 65", 2, 65, 8, 2, 128, True, 0),
-               ("window 100, S 333", 2, 333, 8, 2, 128, True, 100),
-               ("D 80 non-causal S 200", 2, 200, 8, 8, 80, False, 0),
-               ("packed qkv views D 80", 2, 300, 32, 32, 80, True, 0),
-               ("zamba2 D 80 window 4096", 1, 2048, 32, 32, 80, True, 4096)]
+# (label, B, S, H, KH, D, causal, window, T): T keys (T = S but for cross
+# attention).  "MLA" cases zero v beyond its 64 live dims, as MLA's prefill
+# pads it to q's and k's 96.
+FLASH_CASES = [("prefill", 4, 2000, 16, 2, 128, True, 0, 2000),
+               ("window 256", 2, 1000, 16, 2, 128, True, 256, 1000),
+               ("MHA", 2, 512, 8, 8, 64, True, 0, 512),
+               ("MQA", 2, 512, 8, 1, 128, True, 0, 512),
+               ("D 80", 2, 384, 4, 4, 80, True, 0, 384),
+               ("S 1", 4, 1, 16, 2, 128, True, 0, 1),
+               ("non-causal S 333", 1, 333, 4, 2, 128, False, 0, 333),
+               ("packed qkv views", 2, 257, 8, 2, 128, True, 0, 257),
+               ("S 65", 2, 65, 8, 2, 128, True, 0, 65),
+               ("window 100, S 333", 2, 333, 8, 2, 128, True, 100, 333),
+               ("D 80 non-causal S 200", 2, 200, 8, 8, 80, False, 0, 200),
+               ("packed qkv views D 80", 2, 300, 32, 32, 80, True, 0, 300),
+               ("zamba2 D 80 window 4096", 1, 2048, 32, 32, 80, True, 4096,
+                2048),
+               ("MLA prefill D 96, v 64 padded", 4, 2048, 40, 40, 96, True,
+                0, 2048),
+               ("whisper encoder", 4, 1500, 6, 6, 64, False, 0, 1500),
+               ("cross S 400 T 1500", 4, 400, 6, 6, 64, False, 0, 1500),
+               ("internvl2 G 7", 4, 2048, 14, 2, 64, True, 0, 2048)]
 # (label, B, T, KH, G, D, empty slots: "tail", "head" or "all", how many;
 # or "wrap": a ring whose first n slots hold its newest positions)
 DECODE_CASES = [("decode", 4, 2048, 2, 8, 128, "tail", 48),
@@ -308,7 +347,9 @@ DECODE_CASES = [("decode", 4, 2048, 2, 8, 128, "tail", 48),
                ("G 1 D 80, one split", 2, 100, 2, 1, 80, "tail", 5),
                ("G 1 D 80, 8 splits", 1, 2096, 2, 1, 80, "tail", 300),
                ("16 splits, 8 empty", 1, 4096, 1, 8, 128, "tail", 2000),
-               ("G 32", 1, 500, 1, 32, 64, "head", 10)]
+               ("G 32", 1, 500, 1, 32, 64, "head", 10),
+               ("G 7, T 2096", 4, 2096, 2, 7, 64, "tail", 48),
+               ("cross T 1500 all valid", 4, 1500, 6, 1, 64, "tail", 0)]
 # SSD scan vs its plain version (the token-by-token recurrence), relative
 # to max |want|.  fp32: the two sum the same fp32 products in another
 # order (the kernel's running sum of dt·A is fp64): 9.2e-7 seen; a chunk
@@ -338,7 +379,9 @@ LM_TOL = 1e-4
 
 class LMRun(NamedTuple):
     """One LM's serving run and the kernel launches each prefill and each
-    decode step must make on its kernel path."""
+    decode step must make on its kernel path.  ``extra`` rows of patch
+    (VLM) or frame (encoder-decoder) embeddings are drawn from the run's
+    seed; ``changes`` are (field, value) changes to the configuration."""
     arch: str
     batch: int
     prompt: int
@@ -346,6 +389,12 @@ class LMRun(NamedTuple):
     steps: int
     per_prefill: dict
     per_step: dict
+    extra: int = 0
+    changes: tuple = ()
+
+    @property
+    def label(self) -> str:
+        return self.arch + "".join(f"-{k}" for k, _ in self.changes)
 
 
 LM_RUNS = [
@@ -354,6 +403,21 @@ LM_RUNS = [
     LMRun("mamba2-130m", 4, 2048, 2096, 48, {"ssd_scan": 24}, {}),
     LMRun("zamba2-2.7b", 4, 2048, 2096, 48,
           {"ssd_scan": 54, "flash_attention": 9}, {"decode_attention": 9}),
+    # the int8 KV cache: decode dequantises each layer for the kernel
+    LMRun("qwen2.5-3b", 4, 2000, 2048, 48,
+          {"flash_attention": 36}, {"decode_attention": 36},
+          changes=(("kv_quant_int8", True),)),
+    # MLA: flash in prefill; decode in latent space, no kernel
+    LMRun("minicpm3-4b", 4, 2048, 2096, 48, {"flash_attention": 62}, {}),
+    LMRun("olmoe-1b-7b", 4, 2048, 2096, 48,
+          {"flash_attention": 16}, {"decode_attention": 16}),
+    # 256 patches in front of 1792 tokens: G 7 in both attention kernels
+    LMRun("internvl2-1b", 4, 1792, 2096, 48,
+          {"flash_attention": 24}, {"decode_attention": 24}, extra=256),
+    # 4 encoder, 4 self and 4 cross flash launches a prefill; self and
+    # cross attention through decode_attention in each step
+    LMRun("whisper-tiny", 4, 400, 448, 48,
+          {"flash_attention": 12}, {"decode_attention": 8}, extra=1500),
 ]
 
 # fcfs_scan at the batch lane's shape before its redesign (a 5-round
@@ -587,20 +651,27 @@ def kernel_phase() -> float:
     return worst
 
 
+def _case(cases, prefix: str):
+    """The case whose label starts with ``prefix``."""
+    return next(c for c in cases if c[0].startswith(prefix))
+
+
 def _normal(gen, shape, dtype):
     return (torch.randn(shape, generator=gen, device="cuda") * 0.5).to(dtype)
 
 
 def _flash_inputs(gen, case, dtype):
-    label, b, s, h, kh, d, _, _ = case
+    label, b, s, h, kh, d, _, _, t = case
     if label.startswith("packed qkv views"):
         # q, k and v as strided views of one projection, as a fused QKV
         # matmul would leave them.
         qkv = _normal(gen, (b, s, h + 2 * kh, d), dtype)
         return qkv[:, :, :h], qkv[:, :, h:h + kh], qkv[:, :, h + kh:]
+    v = _normal(gen, (b, t, kh, d), dtype)
+    if label.startswith("MLA"):
+        v[..., 64:] = 0
     return (_normal(gen, (b, s, h, d), dtype),
-            _normal(gen, (b, s, kh, d), dtype),
-            _normal(gen, (b, s, kh, d), dtype))
+            _normal(gen, (b, t, kh, d), dtype), v)
 
 
 def _decode_inputs(gen, case, dtype):
@@ -1984,6 +2055,29 @@ def scenario_path() -> int:
     return dispatches
 
 
+def catalog_phase() -> None:
+    """RIBBON over pools of H100 serving cells (``serving.cells``, the
+    reference's ``bench_tpu_cells`` procedure over ``H100_CELLS``): host
+    code, the simulator on the CPU; printed, not gated."""
+    t0 = time.perf_counter()
+    names = ("h100x8", "h100x4", "h100x1")
+    res = search_cells([H100_CELLS[n] for n in names], device="cpu")
+    homog = (f"{res.homog_count} x h100x8 at ${res.homog_cost:.2f}/h"
+             if res.homog_count else "none of 1..6 x h100x8 meets it")
+    phase("catalog", f"{LLM_PROFILE.name} over ({', '.join(names)}), QoS "
+                     f"{cell_catalog.QOS_TARGET} within "
+                     f"{LLM_PROFILE.qos_latency * 1e3:.0f} ms, "
+                     f"{cell_catalog.N_QUERIES} queries at "
+                     f"{cell_catalog.RATE_QPS} qps, "
+                     f"bounds {cell_catalog.BOUNDS}: "
+                     f"homogeneous {homog}; exhaustive optimum "
+                     f"{res.best_config} at ${res.best_cost:.2f}/h (saving "
+                     f"{res.saving_pct:.1f} %); RIBBON {res.ribbon_config} at "
+                     f"${res.ribbon_cost:.2f}/h after {res.ribbon_samples} "
+                     f"samples; {time.perf_counter() - t0:.2f} s on the host "
+                     "(modelled cells, printed, not gated)")
+
+
 def _greedy(logits):
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
 
@@ -2037,7 +2131,59 @@ def plain_scan_in_fp64():
         ssm_module.ssd_chunked = chunked
 
 
-def lm_fp32(api, params, tokens, prefill_step, run: LMRun):
+class RoutingTape:
+    """The MoE layers' expert picks, recorded on the fp32 kernel path and
+    replayed, call by call, on the plain path, so that the fp32 gate holds
+    the two paths' arithmetic under one set of discrete decisions: the
+    kernel path's attention differs from the plain path's by float32
+    rounding, and where a token's 8th and 9th experts lie closer than
+    that, its top-8 set flips, and with it the token's output and, through
+    the experts' capacity, the drops of later tokens (on an H100 one flip
+    in 134,144 routings of olmoe-1b-7b's fp32 run moved its prefill
+    logits by 3 % of max |logits|).  The plain path still
+    computes its own picks; ``flips`` counts the tokens whose own set
+    differs from the replayed one, of ``routed``.  Probabilities are the
+    plain path's own, at the replayed experts, renormalised."""
+
+    def __init__(self):
+        self.picks = deque()
+        self.mode = None
+        self.flips = self.routed = 0
+
+    def route(self, real, moe, xt, k):
+        probs, topk_p, topk_e = real(moe, xt, k)
+        if self.mode == "record":
+            self.picks.append(topk_e)
+        elif self.mode == "replay":
+            forced = self.picks.popleft()
+            self.flips += int((forced.sort(-1).values
+                               != topk_e.sort(-1).values).any(-1).sum())
+            self.routed += topk_e.shape[0]
+            topk_p = probs.gather(1, forced)
+            topk_p = topk_p / topk_p.sum(-1, keepdim=True).clamp_min(1e-9)
+            topk_e = forced
+        return probs, topk_p, topk_e
+
+    @contextmanager
+    def installed(self):
+        """Within: ``layers.moe_route`` goes through the tape."""
+        real = layers_module.moe_route
+        layers_module.moe_route = partial(self.route, real)
+        try:
+            yield self
+        finally:
+            layers_module.moe_route = real
+
+    @contextmanager
+    def recording(self, on: bool):
+        self.mode = "record" if on else "replay"
+        try:
+            yield
+        finally:
+            self.mode = None
+
+
+def lm_fp32(api, params, batch, prefill_step, run: LMRun):
     """fp32 kernel path against the plain path, teacher-forced on the
     kernel path's tokens, within LM_TOL x max |logits| and the same greedy
     tokens.  For a model with Mamba-2 layers a third run, the plain path
@@ -2050,27 +2196,38 @@ def lm_fp32(api, params, tokens, prefill_step, run: LMRun):
     names = ["kernel", "plain"]
     if api.cfg.family in ("ssm", "hybrid"):
         names.append("fp64 scan")
+    tape = RoutingTape()
+
+    def routing(name):
+        if not api.cfg.is_moe:
+            return nullcontext()
+        return tape.recording(name == "kernel")
 
     def prefill(name):
         if name == "kernel":
-            return prefill_step(params, {"tokens": tokens})
+            return prefill_step(params, batch)
         with plain_scan_in_fp64() if name == "fp64 scan" else nullcontext():
-            return api.prefill(params, tokens, run.max_len, use_kernel=False)
+            return api.prefill(params, batch["tokens"], run.max_len,
+                               batch["extra"], use_kernel=False)
 
     caches, logits = {}, {}
-    for name in names:
-        caches[name], out = prefill(name)
-        logits[name] = [out]
-    if logits["kernel"][0].shape != (run.batch, 1, api.cfg.vocab_size):
-        raise AssertionError(f"LM prefill logits "
-                             f"{tuple(logits['kernel'][0].shape)}")
-    tok = _greedy(logits["kernel"][0])
-    for _ in range(run.steps):
+    with tape.installed():
         for name in names:
-            out, caches[name] = api.decode_step(
-                params, caches[name], tok, use_kernel=name == "kernel")
-            logits[name].append(out)
-        tok = _greedy(logits["kernel"][-1])
+            with routing(name):
+                caches[name], out = prefill(name)
+            logits[name] = [out]
+        if logits["kernel"][0].shape != (run.batch, 1, api.cfg.vocab_size):
+            raise AssertionError(f"LM prefill logits "
+                                 f"{tuple(logits['kernel'][0].shape)}")
+        tok = _greedy(logits["kernel"][0])
+        for _ in range(run.steps):
+            for name in names:
+                with routing(name):
+                    out, caches[name] = api.decode_step(
+                        params, caches[name], tok,
+                        use_kernel=name == "kernel")
+                logits[name].append(out)
+            tok = _greedy(logits["kernel"][-1])
 
     def farthest(a, b):
         return max(_rel(x, y) for x, y in zip(logits[a], logits[b]))
@@ -2083,7 +2240,12 @@ def lm_fp32(api, params, tokens, prefill_step, run: LMRun):
     exact = "" if len(names) == 2 else (
         f"; from the fp64 scan's run the plain path lies up to {noise:.3g}, "
         f"the kernel path {farthest('kernel', 'fp64 scan'):.3g}")
-    phase("lm", f"{run.arch} fp32, {run.batch} x {run.prompt} prompt tokens, "
+    if api.cfg.is_moe:
+        exact += (f"; the plain path ran the kernel path's expert picks: "
+                  f"its own differ for {tape.flips} of {tape.routed} "
+                  "token routings (near-ties)")
+    phase("lm", f"{run.label} fp32, {run.batch} x {run.prompt} prompt tokens"
+                f"{_extra_text(run)}, "
                 f"{run.steps} decode steps: kernel path vs plain path max "
                 f"|diff| {worst:.3g} x max |logits| (gate {LM_TOL} + "
                 f"{noise:.3g}){exact}; the same greedy tokens at all "
@@ -2091,12 +2253,12 @@ def lm_fp32(api, params, tokens, prefill_step, run: LMRun):
     return torch.cat([_greedy(out) for out in logits["kernel"]], dim=1)
 
 
-def lm_serve(params, tokens, prefill_step, serve_step, steps: int):
+def lm_serve(params, batch, prefill_step, serve_step, steps: int):
     """One bf16 serving run on the kernel path: prefill, then greedy decode
     steps; returns (prefill ms, decode ms per step, tokens (B, 1 + steps))."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cache, logits = prefill_step(params, {"tokens": tokens})
+    cache, logits = prefill_step(params, batch)
     tok = _greedy(logits)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -2109,12 +2271,12 @@ def lm_serve(params, tokens, prefill_step, serve_step, steps: int):
     return (t1 - t0) * 1e3, (t2 - t1) * 1e3 / steps, torch.cat(out, 1)
 
 
-def lm_agreement(api, params, tokens, served, run: LMRun,
+def lm_agreement(api, params, batch, served, run: LMRun,
                  use_kernel: bool = False) -> float:
     """Share of the greedy tokens ``served`` (B, 1 + steps) that a path
     (the plain one by default), fed the same prefixes, also picks."""
-    cache, logits = api.prefill(params, tokens, run.max_len,
-                                use_kernel=use_kernel)
+    cache, logits = api.prefill(params, batch["tokens"], run.max_len,
+                                batch["extra"], use_kernel=use_kernel)
     same = [_greedy(logits) == served[:, :1]]
     for i in range(run.steps):
         logits, cache = api.decode_step(params, cache, served[:, i:i + 1],
@@ -2123,31 +2285,38 @@ def lm_agreement(api, params, tokens, served, run: LMRun,
     return torch.cat(same, 1).float().mean().item()
 
 
-def lm_phase(api, params, tokens, run: LMRun) -> dict:
+def lm_phase(api, params, batch, run: LMRun) -> dict:
     """The LM serving path: fp32 kernel vs plain, then bf16 serving runs.
     Returns the prefills and decode steps taken on the kernel path and the
     bf16 timings."""
     prefill_step = make_prefill_step(api, run.max_len)
     serve_step = make_decode_step(api)
-    fp32_tokens = lm_fp32(api, params, tokens, prefill_step, run)
+    fp32_tokens = lm_fp32(api, params, batch, prefill_step, run)
     params.to(torch.bfloat16)
-    runs = [lm_serve(params, tokens, prefill_step, serve_step, run.steps)
+    routers = [b.dtype for n, b in params.named_buffers()
+               if n.endswith("router")]
+    if any(dt != torch.float32 for dt in routers):
+        raise AssertionError(f"{run.label}: MoE routers {set(routers)} in bf16 "
+                             "serving, expected float32")
+    runs = [lm_serve(params, batch, prefill_step, serve_step, run.steps)
             for _ in range(2)]
     prefill_ms, step_ms, served = runs[-1]
     if not torch.equal(runs[0][2], served):
         raise AssertionError("LM bf16: two serving runs gave other tokens")
-    agree = lm_agreement(api, params, tokens, served, run)
-    kern32, plain32 = (lm_agreement(api, params, tokens, fp32_tokens, run,
+    agree = lm_agreement(api, params, batch, served, run)
+    kern32, plain32 = (lm_agreement(api, params, batch, fp32_tokens, run,
                                     use_kernel=k) for k in (True, False))
-    phase("lm", f"{run.arch} bf16 serving (second of 2 runs, eager): "
+    router = (f"; its {len(routers)} MoE routers stay float32"
+              if routers else "")
+    phase("lm", f"{run.label} bf16 serving (second of 2 runs, eager): "
                 f"prefill {prefill_ms:.2f} ms for {run.batch} x {run.prompt} "
-                f"tokens, decode {step_ms:.3f} ms per step = "
+                f"tokens{_extra_text(run)}, decode {step_ms:.3f} ms per step = "
                 f"{run.batch * 1e3 / step_ms:.1f} tokens/s; kernel path "
                 f"agrees with the plain path on {agree:.4f} of "
                 f"{served.numel()} greedy tokens; of the fp32 kernel path's "
                 f"greedy tokens, fed the same prefixes, the bf16 kernel path "
                 f"picks {kern32:.4f} and the bf16 plain path {plain32:.4f} "
-                f"(printed, not gated)")
+                f"(printed, not gated){router}")
     # kernel-path runs: the fp32 comparison, the bf16 serving runs and the
     # bf16 kernel path's agreement with the fp32 tokens
     n_runs = 1 + len(runs) + 1
@@ -2155,59 +2324,96 @@ def lm_phase(api, params, tokens, run: LMRun) -> dict:
             "prefill_ms": prefill_ms, "step_ms": step_ms}
 
 
-def lm_device_phase(api, params, tokens, lm: dict, run: LMRun) -> None:
+def lm_device_phase(api, params, batch, lm: dict, run: LMRun) -> None:
     """Device-only bf16 prefill and decode-step times (CUDA graph replays,
     launched outside the counted run) against the eager times."""
-    cache, logits = api.prefill(params, tokens, run.max_len)
+    tokens, extra = batch["tokens"], batch["extra"]
+    cache, logits = api.prefill(params, tokens, run.max_len, extra)
     tok = _greedy(logits)
     step_dev = graph_ms(lambda: api.decode_step(params, cache, tok),
                         calls=4, replays=5)
-    prefill_dev = graph_ms(lambda: api.prefill(params, tokens, run.max_len),
+    prefill_dev = graph_ms(lambda: api.prefill(params, tokens, run.max_len,
+                                               extra),
                            calls=1, replays=3)
-    phase("lm", f"{run.arch} bf16 device-only (CUDA graph): prefill "
+    phase("lm", f"{run.label} bf16 device-only (CUDA graph): prefill "
                 f"{prefill_dev:.2f} ms, decode step {step_dev:.3f} ms; so "
                 f"the card idles {1 - prefill_dev / lm['prefill_ms']:.1%} of "
                 f"an eager prefill and {1 - step_dev / lm['step_ms']:.1%} of "
                 f"an eager decode step")
 
 
-def lm_path(run: LMRun) -> dict:
-    """One LM's serving path at full width and depth, random weights from
-    seed 0: counts set to 0 just before its serving runs and read just
-    after, each kernel's count held to ``run``'s launches per prefill and
-    per step, and the attention kernels' counts by type to the fp32 run's
-    1 prefill and ``run.steps`` steps, the rest bf16.  Returns the counts
-    and the attention kernels' counts by type."""
-    api = get_model(get_arch(run.arch))
-    cfg = api.cfg
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = api.init_params(gen, torch.float32, "cuda")
-    tokens = torch.randint(0, cfg.vocab_size, (run.batch, run.prompt),
-                           generator=gen, device="cuda", dtype=torch.int32)
-    if cfg.family == "dense":
-        shape = f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, " \
-                f"d_ff {cfg.d_ff}"
-    else:
+def _extra_text(run: LMRun) -> str:
+    if not run.extra:
+        return ""
+    kind = "patches" if get_arch(run.arch).family == "vlm" else "frames"
+    return f" after {run.extra} {kind}"
+
+
+def _lm_shape(cfg) -> str:
+    """The architecture's shape, as lm_path prints it."""
+    if cfg.family in ("ssm", "hybrid"):
         shape = f"{cfg.ssm_nheads} SSM heads of {cfg.ssm_headdim}, state " \
                 f"{cfg.ssm_state}, d_inner {cfg.d_inner}"
+    elif cfg.attention == "mla":
+        shape = (f"MLA: {cfg.n_heads} heads, q/k {cfg.qk_nope_dim} + "
+                 f"{cfg.qk_rope_dim}, v {cfg.v_head_dim}, q_lora "
+                 f"{cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, "
+                 f"d_ff {cfg.d_ff}")
+    else:
+        shape = f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of " \
+                f"{cfg.d_head}, d_ff {cfg.d_ff}"
+    if cfg.is_moe:
+        shape += (f", {cfg.n_experts} experts top-{cfg.top_k} of "
+                  f"{cfg.expert_ff}, capacity factor {cfg.moe_capacity_factor}")
+    if cfg.kv_quant_int8:
+        shape += ", int8 KV cache"
+    if cfg.family == "vlm":
+        shape += f", {cfg.n_patches} patches"
+    if cfg.family == "encdec":
+        shape += (f"; {cfg.n_encoder_layers} encoder layers over "
+                  f"{cfg.encoder_seq} frames")
     if cfg.family == "hybrid":
         shape += (f"; {cfg.n_layers // cfg.attn_every} super-blocks of "
                   f"{cfg.attn_every}, each followed by the shared block of "
                   f"{cfg.n_heads} heads x {cfg.d_head}, window "
                   f"{cfg.sliding_window}, d_ff {cfg.d_ff}")
-    phase("lm", f"{run.arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-                f"{shape}, vocab {cfg.vocab_size}; "
-                f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
-                "parameters, random from seed 0")
+    return shape
+
+
+def lm_path(run: LMRun) -> dict:
+    """One LM's serving path at full width and depth, random weights (and
+    patch or frame embeddings, N(0, 0.02^2) as the token embeddings) from
+    seed 0: counts set to 0 just before its serving runs and read just
+    after, each kernel's count held to ``run``'s launches per prefill and
+    per step, and the attention kernels' counts by type to the fp32 run's
+    1 prefill and ``run.steps`` steps, the rest bf16.  Returns the counts
+    and the attention kernels' counts by type."""
+    api = get_model(dataclasses.replace(get_arch(run.arch),
+                                        **dict(run.changes)))
+    cfg = api.cfg
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = api.init_params(gen, torch.float32, "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (run.batch, run.prompt),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    extra = None
+    if run.extra:
+        extra = torch.randn((run.batch, run.extra, cfg.d_model),
+                            generator=gen, device="cuda") * 0.02
+    batch = {"tokens": tokens, "extra": extra}
+    n_params = sum(p.numel() for p in params.parameters()) + sum(
+        b.numel() for b in params.buffers())
+    phase("lm", f"{run.label}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+                f"{_lm_shape(cfg)}, vocab {cfg.vocab_size}; "
+                f"{n_params / 1e9:.3f} B parameters, random from seed 0")
     reset_counts()
-    lm = lm_phase(api, params, tokens, run)
+    lm = lm_phase(api, params, batch, run)
     counts = {fn.__name__[:-5]: fn.launches for fn in COUNTED}
     for name, got in counts.items():
         want = (run.per_prefill.get(name, 0) * lm["prefills"]
                 + run.per_step.get(name, 0) * lm["steps"])
         if got != want:
             raise AssertionError(
-                f"{run.arch} path: {name} launched {got} times, expected "
+                f"{run.label} path: {name} launched {got} times, expected "
                 f"{run.per_prefill.get(name, 0)} x {lm['prefills']} prefills "
                 f"+ {run.per_step.get(name, 0)} x {lm['steps']} steps")
     by_dtype = {fn.__name__[:-5]: dict(fn.launches_by_dtype)
@@ -2218,17 +2424,17 @@ def lm_path(run: LMRun) -> dict:
                 "bfloat16": per_p * (lm["prefills"] - 1)
                 + per_s * (lm["steps"] - run.steps)}
         if got != want:
-            raise AssertionError(f"{run.arch} path: {name} launches by type "
+            raise AssertionError(f"{run.label} path: {name} launches by type "
                                  f"{got}, expected {want}")
-    phase("launches", f"{run.arch} path: " + "; ".join(
+    phase("launches", f"{run.label} path: " + "; ".join(
         f"{name} {counts[name]} = {per} x {lm[unit]} {unit}"
         for per_unit, unit in ((run.per_prefill, "prefills"),
                                (run.per_step, "steps"))
         for name, per in per_unit.items()) + "; no other kernel" + "".join(
             f"; {name} by type {c}" for name, c in by_dtype.items()
             if any(c.values())))
-    lm_device_phase(api, params, tokens, lm, run)
-    del params
+    lm_device_phase(api, params, batch, lm, run)
+    del params, batch
     torch.cuda.empty_cache()
     return counts, by_dtype
 
@@ -2333,7 +2539,7 @@ def flash_line(launches: int, by_path: dict, by_dtype: dict,
     KH 2, D 128, causal, bf16.  Library: SDPA with enable_gqa."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     case = FLASH_CASES[0]
-    _, b, s, h, kh, d, causal, window = case
+    _, b, s, h, kh, d, causal, window, _ = case
     q, k, v = _flash_inputs(gen, case, torch.bfloat16)
     err = _gate("flash_attention line", ops.flash_attention(q, k, v),
                 flash_attention_ref(q, k, v),
@@ -2350,15 +2556,26 @@ def flash_line(launches: int, by_path: dict, by_dtype: dict,
                            f"B {b}, S {s}, H {h}, KH {kh}, D {d}, causal, "
                            "bf16", "bf16: mma.sync m16n8k16, cp.async K/V "
                            "ring x2, ldmatrix; fp32: scalar FMAs")
-    # zamba2-2.7b's shared block at its prefill: the kernel alone
-    case = ("zamba2", 4, 2048, 32, 32, 80, True, 4096)
-    _, b, s, h, kh, d, causal, window = case
-    q, k, v = _flash_inputs(gen, case, torch.bfloat16)
-    flops = 4 * d * b * h * _valid_pairs(s, s, causal, window)
-    line["zamba2_shape"] = _kernel_only(
-        lambda: ops.flash_attention(q, k, v, window=window), (4, 3), flops,
-        2 * (2 * q.numel() + k.numel() + v.numel()),
-        f"B {b}, S {s}, H {h}, KH {kh}, D {d}, causal, window {window}, bf16")
+    # the kernel alone at other paths' shapes: zamba2-2.7b's shared block,
+    # minicpm3-4b's MLA prefill (v padded from 64), the whisper encoder and
+    # its cross attention, internvl2-1b's prefill (G 7)
+    for key, case in (
+            ("zamba2_shape", ("zamba2", 4, 2048, 32, 32, 80, True, 4096,
+                              2048)),
+            ("mla_shape", _case(FLASH_CASES, "MLA")),
+            ("encoder_shape", _case(FLASH_CASES, "whisper encoder")),
+            ("cross_shape", _case(FLASH_CASES, "cross")),
+            ("internvl2_shape", _case(FLASH_CASES, "internvl2"))):
+        label, b, s, h, kh, d, causal, window, t = case
+        q, k, v = _flash_inputs(gen, case, torch.bfloat16)
+        flops = 4 * d * b * h * _valid_pairs(s, t, causal, window)
+        line[key] = _kernel_only(
+            lambda q=q, k=k, v=v, causal=causal, window=window:
+            ops.flash_attention(q, k, v, causal=causal, window=window),
+            (4, 3), flops, 2 * (2 * q.numel() + k.numel() + v.numel()),
+            f"B {b}, S {s}, T {t}, H {h}, KH {kh}, D {d}, "
+            f"{'causal' if causal else 'non-causal'}"
+            + (f", window {window}" if window else "") + ", bf16")
     return line
 
 
@@ -2390,16 +2607,20 @@ def decode_line(launches: int, by_path: dict, by_dtype: dict,
                            "x4, mma.sync (G >= 2) or two-lane dot products "
                            "(G 1), last block combines the splits; fp32: "
                            "split + combine kernels, scalar FMAs")
-    # zamba2-2.7b's shared block in a decode step: the kernel alone
-    case = ("zamba2", 4, 2096, 32, 1, 80, "tail", 48)
-    _, b, t, kh, g, d, _, n_empty = case
-    q, k, v, pos = _decode_inputs(gen, case, torch.bfloat16)
-    n_valid = t - n_empty
-    line["zamba2_shape"] = _kernel_only(
-        lambda: ops.decode_attention(q, k, v, pos), (50, 20),
-        4 * d * b * kh * g * n_valid,
-        2 * (2 * q.numel() + 2 * b * n_valid * kh * d) + 4 * t,
-        f"B {b}, T {t} ({n_valid} valid), KH {kh}, G {g}, D {d}, bf16")
+    # the kernel alone at other paths' shapes: zamba2-2.7b's shared block,
+    # internvl2-1b's step (G 7), whisper's cross attention (T 1500 valid)
+    for key, case in (("zamba2_shape", ("zamba2", 4, 2096, 32, 1, 80, "tail",
+                                        48)),
+                      ("g7_shape", _case(DECODE_CASES, "G 7")),
+                      ("cross_shape", _case(DECODE_CASES, "cross"))):
+        _, b, t, kh, g, d, _, n_empty = case
+        q, k, v, pos = _decode_inputs(gen, case, torch.bfloat16)
+        n_valid = t - n_empty
+        line[key] = _kernel_only(
+            lambda q=q, k=k, v=v, pos=pos: ops.decode_attention(q, k, v, pos),
+            (50, 20), 4 * d * b * kh * g * n_valid,
+            2 * (2 * q.numel() + 2 * b * n_valid * kh * d) + 4 * t,
+            f"B {b}, T {t} ({n_valid} valid), KH {kh}, G {g}, D {d}, bf16")
     return line
 
 
@@ -2774,10 +2995,12 @@ def main() -> int:
                       f"path = 1 x {st_dispatches} chunks, all of the stream "
                       "flavour; no other kernel")
 
+    catalog_phase()
+
     # Main paths 3-5: the LMs' serving paths at full width and depth.
     by_path, by_dtype = {}, {}
     for run in LM_RUNS:
-        by_path[run.arch], dtypes = lm_path(run)
+        by_path[run.label], dtypes = lm_path(run)
         for kernel, counts in dtypes.items():
             total = by_dtype.setdefault(kernel, dict.fromkeys(counts, 0))
             for dtype, n in counts.items():

@@ -38,7 +38,7 @@ from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
 # (label, case): the kernels at their paths' shapes.
 FLASH_TIMED = [("qwen2.5-3b prefill", smoke.FLASH_CASES[0]),
                ("zamba2-2.7b prefill", ("zamba2", 4, 2048, 32, 32, 80, True,
-                                        4096))]
+                                        4096, 2048))]
 DECODE_TIMED = [("qwen2.5-3b step", smoke.DECODE_CASES[0]),
                 ("zamba2-2.7b step", ("zamba2", 4, 2096, 32, 1, 80, "tail",
                                       48))]
@@ -90,7 +90,7 @@ def report(name, kernel, plain, exact) -> int:
 def time_shapes() -> None:
     gen = torch.Generator(device="cuda").manual_seed(4)
     for label, case in FLASH_TIMED:
-        _, b, s, h, kh, d, causal, window = case
+        _, b, s, h, kh, d, causal, window, _ = case
         q, k, v = smoke._flash_inputs(gen, case, torch.bfloat16)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         flops = 4 * d * b * h * smoke._valid_pairs(s, s, causal, window)

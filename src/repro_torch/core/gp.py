@@ -164,6 +164,18 @@ class GaussianProcess:
                                         self._mask_host))
         return self._dev
 
+    @property
+    def x(self) -> torch.Tensor:
+        return self.buffers()[0]
+
+    @property
+    def y(self) -> torch.Tensor:
+        return self.buffers()[1]
+
+    @property
+    def mask(self) -> torch.Tensor:
+        return self.buffers()[2]
+
     def predict(self, x_query) -> tuple[torch.Tensor, torch.Tensor]:
         xq = torch.as_tensor(np.asarray(x_query, dtype=np.float32),
                              device=self.device)

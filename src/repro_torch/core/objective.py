@@ -11,6 +11,7 @@ the meeting regime a lower cost.  Counterpart of ``repro/core/objective.py``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -28,3 +29,17 @@ def ribbon_objective_batch(qos_rates: torch.Tensor, costs: torch.Tensor,
     violating = 0.5 * qos_rates / qos_target
     meeting = 0.5 + 0.5 * (1.0 - costs / max_cost)
     return torch.where(qos_rates < qos_target, violating, meeting)
+
+
+def naive_cost_objective(qos_rate: float, cost: float, qos_target: float,
+                         max_cost: float) -> float:
+    """The rejected single-metric objective the paper ablates against
+    ("such design did not work well"): cost-only reward for feasible
+    configs, flat zero otherwise."""
+    if qos_rate < qos_target:
+        return 0.0
+    return 1.0 - cost / max_cost
+
+
+def is_feasible(qos_rate: float, qos_target: float) -> bool:
+    return bool(np.asarray(qos_rate) >= qos_target)

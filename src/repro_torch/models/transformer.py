@@ -1,9 +1,10 @@
-"""Decoder LMs in PyTorch: the dense GQA, SSM and hybrid families' serving
-paths.
+"""The LM families in PyTorch: decoder LMs (dense GQA, MLA, MoE, VLM patch
+prefixes, the int8 KV cache), SSM, hybrid and encoder-decoder.
 
-Counterpart of ``repro/models/transformer.py`` (the dense branch of
-``make_decoder_lm``, :180-350, ``make_ssm_lm`` :353 and ``make_hybrid_lm``
-:422).  ``get_model(cfg)`` returns a ``ModelApi``:
+Counterpart of ``repro/models/transformer.py`` (``make_decoder_lm`` :180,
+``make_ssm_lm`` :353, ``make_hybrid_lm`` :422, ``make_encdec_lm`` :571).
+``get_model(cfg)`` returns a ``ModelApi`` for every configuration in
+``configs.ARCHS``:
 
     init_params(generator, dtype, device)             -> DecoderLM
     forward(params, tokens, extra)                    -> (logits, aux)
@@ -12,19 +13,29 @@ Counterpart of ``repro/models/transformer.py`` (the dense branch of
     decode_step(params, cache, tokens)                -> (logits, cache)
 
 Parameters live in a ``DecoderLM`` module whose layers are an
-``nn.ModuleList`` (the reference scans over parameters stacked on a layer
-axis); ``lm_from_numpy`` carries the reference's parameter pytree across.
-Dense layers attend through the flash-attention kernel in forward and
-prefill and through the decode-attention kernel in each decode step, one
-launch per layer.  Mamba-2 layers (``ssm.py``) scan the prompt through the
+``nn.ModuleList`` of ``Layer``s under the reference's names (the reference
+scans over parameters stacked on a layer axis); ``lm_from_numpy`` carries
+the reference's parameter pytree across.  GQA layers attend through the
+flash-attention kernel in forward and prefill and through the
+decode-attention kernel in each decode step, one launch per layer; the
+int8 KV cache is dequantised to the serving type for that kernel.  MLA
+layers prefill through the flash kernel (q, k and v zero-padded to one
+head dim) and decode in latent space with plain products, as the
+reference does.  MoE layers route and run their experts in plain PyTorch
+(``layers.moe_layer``).  A VLM prepends its patch embeddings (``extra``,
+(B, n_patches, D)) to the tokens' and decodes on from position
+n_patches + S.  Mamba-2 layers (``ssm.py``) scan the prompt through the
 SSD-scan kernel, one launch per layer, and decode in plain PyTorch.  The
 hybrid family (zamba2) runs ``attn_every`` Mamba-2 layers, then one shared
 attention block, per super-block, each super-block with its own KV ring
-layer.  ``prefill`` and ``decode_step`` take ``use_kernel=False`` to run
-the reference model's own math instead, so a run can hold the kernel path
-against it on the card.  Caches are preallocated and written in place
-(``cache.py``): ``decode_step`` returns the same dict it was given,
-advanced one step.
+layer.  The encoder-decoder (whisper) encodes its frames (``extra``,
+(B, T, D)) with non-causal flash attention, attends from the decoder to
+them through flash attention in prefill and through the decode-attention
+kernel in each step.  ``prefill`` and ``decode_step`` take
+``use_kernel=False`` to run the reference model's own math instead, so a
+run can hold the kernel path against it on the card.  Caches are
+preallocated and written in place (``cache.py``): ``decode_step`` returns
+the same dict it was given, advanced one step.
 """
 
 from __future__ import annotations
@@ -40,10 +51,14 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels import ops
-from .cache import (cache_window, init_kv_cache, init_ssm_cache, ring_slot,
+from .cache import (cache_window, dequantize_kv, init_kv_cache,
+                    init_mla_cache, init_ssm_cache, quantize_kv, ring_slot,
                     write_slot)
-from .layers import (attention_core, attention_full, dense, gqa_attention,
-                     gqa_project_qkv, init_gqa_params, rmsnorm, swiglu_mlp)
+from .layers import (MoE, attention_core, attention_full, dense, gelu_mlp,
+                     gqa_attention, gqa_project_qkv, init_gqa_params,
+                     init_mla_params, init_moe_params, layernorm,
+                     mla_decode_absorbed, mla_latents, mla_prefill,
+                     moe_layer, normal, rmsnorm, swiglu_mlp)
 from .ssm import init_ssm_params, ssm_decode_step, ssm_forward
 
 
@@ -61,113 +76,121 @@ def _param(x: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(x, requires_grad=False)
 
 
-class DecoderLayer(nn.Module):
-    """One pre-norm block: ``attn`` (wq, wk, wv, wo and q/k/v biases) and
-    ``mlp`` (w1, w3, w2) as ParameterDicts under the reference's names."""
+class Layer(nn.Module):
+    """One layer's parameters under the reference's names: a tensor is a
+    Parameter, a dict of tensors a ParameterDict, a module (``MoE``) kept as
+    it is.  A decoder block has ``attn_norm``, ``attn``, ``mlp_norm`` and
+    ``mlp`` or ``moe``; a Mamba-2 block ``norm`` and ``ssm``; an encoder
+    block ``norm1_w/b``, ``attn``, ``norm2_w/b`` and ``mlp`` (w1, b1, w2,
+    b2), a decoder block of the encoder-decoder those and ``xattn``,
+    ``norm3_w/b``."""
 
-    def __init__(self, attn_norm, mlp_norm, attn: dict, mlp: dict):
+    def __init__(self, **parts):
         super().__init__()
-        self.attn_norm = _param(attn_norm)
-        self.mlp_norm = _param(mlp_norm)
-        self.attn = nn.ParameterDict({n: _param(x) for n, x in attn.items()})
-        self.mlp = nn.ParameterDict({n: _param(x) for n, x in mlp.items()})
-
-
-class MambaLayer(nn.Module):
-    """One pre-norm Mamba-2 block: ``norm`` and ``ssm`` (in_proj, conv_w,
-    conv_b, A_log, D, dt_bias, ssm_norm, out_proj) under the reference's
-    names."""
-
-    def __init__(self, norm, ssm: dict):
-        super().__init__()
-        self.norm = _param(norm)
-        self.ssm = nn.ParameterDict({n: _param(x) for n, x in ssm.items()})
+        for name, x in parts.items():
+            if isinstance(x, dict):
+                x = nn.ParameterDict({n: _param(a) for n, a in x.items()})
+            elif not isinstance(x, nn.Module):
+                x = _param(x)
+            setattr(self, name, x)
 
 
 class DecoderLM(nn.Module):
     """Embedding (V, D), untied ``lm_head`` (D, V), final norm, layers; the
-    hybrid family adds its one ``shared`` attention block (a
-    ``DecoderLayer``)."""
+    hybrid family adds its one ``shared`` attention block, the
+    encoder-decoder its ``enc_layers`` (its ``layers`` are the reference's
+    ``dec_layers``)."""
 
-    def __init__(self, embed, lm_head, final_norm, layers, shared=None):
+    def __init__(self, embed, lm_head, final_norm, layers, shared=None,
+                 enc_layers=None):
         super().__init__()
         self.embed = _param(embed)
         self.lm_head = _param(lm_head)
         self.final_norm = _param(final_norm)
         self.layers = nn.ModuleList(layers)
         self.shared = shared
-
-
-def _unsupported(cfg: ArchConfig) -> str | None:
-    """The ROADMAP item that ports what ``cfg`` needs beyond the ported
-    families."""
-    if cfg.family == "encdec":
-        return "the encdec family is ROADMAP A-15e"
-    if cfg.family == "vlm":
-        return "VLM patch prefixes are ROADMAP A-15d"
-    if cfg.is_moe or cfg.family == "moe":
-        return "MoE layers are ROADMAP A-15b"
-    if cfg.attention == "mla":
-        return "MLA attention is ROADMAP A-15a"
-    if cfg.kv_quant_int8:
-        return "the int8 KV cache is ROADMAP A-15c"
-    if cfg.family not in _FAMILIES:
-        return f"unknown family {cfg.family!r}"
-    return None
+        self.enc_layers = None if enc_layers is None else \
+            nn.ModuleList(enc_layers)
 
 
 def get_model(cfg: ArchConfig) -> ModelApi:
-    """The dense GQA, SSM (mamba2) and hybrid (zamba2) families; anything
-    else raises ``NotImplementedError`` naming the ROADMAP item that ports
-    it."""
-    reason = _unsupported(cfg)
-    if reason is not None:
-        raise NotImplementedError(f"{cfg.name}: not ported yet; {reason}")
+    """Every family of ``configs.ARCHS``: dense (GQA or MLA), moe and vlm
+    (``make_decoder_lm``), ssm (mamba2), hybrid (zamba2), encdec
+    (whisper)."""
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
     return _FAMILIES[cfg.family](cfg)
 
 
 def _init_embed(generator, cfg, dtype, device) -> dict:
     d, v = cfg.d_model, cfg.vocab_size
-
-    def normal(shape, scale):
-        x = torch.randn(shape, generator=generator, device=device) * scale
-        return x.to(dtype)
-
-    return {"embed": normal((v, d), 0.02),
-            "lm_head": normal((d, v), d ** -0.5),
+    return {"embed": normal(generator, (v, d), 0.02, dtype, device),
+            "lm_head": normal(generator, (d, v), d ** -0.5, dtype, device),
             "final_norm": torch.ones(d, dtype=dtype, device=device)}
 
 
-def _init_block(generator, cfg, dtype, device) -> DecoderLayer:
-    """One attention + SwiGLU block with the reference's distributions."""
+def _init_block(generator, cfg, dtype, device) -> Layer:
+    """One attention (GQA or MLA) + SwiGLU or MoE block with the
+    reference's distributions."""
     d, f = cfg.d_model, cfg.d_ff
-
-    def normal(shape, s):
-        x = torch.randn(shape, generator=generator, device=device) * s
-        return x.to(dtype)
-
     ones = torch.ones(d, dtype=dtype, device=device)
-    attn = init_gqa_params(generator, cfg, dtype, device)
-    mlp = {"w1": normal((d, f), d ** -0.5), "w3": normal((d, f), d ** -0.5),
-           "w2": normal((f, d), f ** -0.5)}
-    return DecoderLayer(ones, ones.clone(), attn, mlp)
+    if cfg.attention == "mla":
+        attn = init_mla_params(generator, cfg, dtype, device)
+    else:
+        attn = init_gqa_params(generator, cfg, dtype, device)
+    parts = {"attn_norm": ones, "mlp_norm": ones.clone(), "attn": attn}
+    if cfg.is_moe:
+        parts["moe"] = init_moe_params(generator, cfg, dtype, device)
+    else:
+        parts["mlp"] = {"w1": normal(generator, (d, f), d ** -0.5, dtype,
+                                      device),
+                        "w3": normal(generator, (d, f), d ** -0.5, dtype,
+                                      device),
+                        "w2": normal(generator, (f, d), f ** -0.5, dtype,
+                                      device)}
+    return Layer(**parts)
 
 
 def _logits(params: DecoderLM, h: torch.Tensor, cfg) -> torch.Tensor:
     return dense(rmsnorm(h, params.final_norm, cfg.norm_eps), params.lm_head)
 
 
-def _ring_scatter(cache: dict, layer: int, k: torch.Tensor, v: torch.Tensor,
+def _no_extra(cfg, extra) -> None:
+    if extra is not None:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family takes no "
+                         "extra input (patch or frame embeddings)")
+
+
+def _embed(params: DecoderLM, cfg, tokens: torch.Tensor, extra):
+    """Token embeddings (B, S, D); a VLM's patch embeddings ``extra``
+    (B, n_patches, D), cast to their type, go in front."""
+    h = F.embedding(tokens, params.embed)
+    if extra is None:
+        return h
+    if cfg.family != "vlm":
+        _no_extra(cfg, extra)
+    return torch.cat([extra.to(h.dtype), h], dim=1)
+
+
+def _ring_scatter(cache: dict, layer: int, entries: dict,
                   positions: torch.Tensor) -> None:
-    """Write the prompt's keys and values (B, S, KH, hd), keyed by absolute
+    """Write the prompt's cache entries (B, S, ...), keyed by absolute
     positions (S,), into slots ``positions mod W`` of cache layer ``layer``
     and the position table, in place; of S > W positions the last W are
-    kept.  The reference builds a new ring instead."""
-    w = cache["k"].shape[2]
+    kept.  An int8 cache quantises the whole ring of k and v after the
+    scatter, as the reference does (empty slots: value 0, scale 1e-8).
+    The reference builds a new ring instead."""
+    w = cache["pos"].shape[0]
     kept = positions[-w:]
     slots = kept.long() % w
-    cache["k"][layer][:, slots] = k[:, -w:]
-    cache["v"][layer][:, slots] = v[:, -w:]
+    for name, x in entries.items():
+        if name + "_scale" in cache:
+            ring = x.new_zeros((x.shape[0], w, *x.shape[2:]))
+            ring[:, slots] = x[:, -w:]
+            cache[name][layer], cache[name + "_scale"][layer] = \
+                quantize_kv(ring)
+        else:
+            cache[name][layer][:, slots] = x[:, -w:]
     cache["pos"][slots] = kept
 
 
@@ -181,7 +204,7 @@ def _attn_prefill(cfg, attn, hn: torch.Tensor, cache: dict, layer: int,
     q, k, v = gqa_project_qkv(attn, hn, cfg, positions)
     out = attention_full(q, k, v, positions, cfg.sliding_window,
                          cfg.d_head ** -0.5, use_kernel=use_kernel)
-    _ring_scatter(cache, layer, k, v, positions)
+    _ring_scatter(cache, layer, {"k": k, "v": v}, positions)
     return dense(out.reshape(b, s, cfg.n_heads * cfg.d_head), attn["wo"])
 
 
@@ -189,9 +212,23 @@ def _advance_ring(cache: dict) -> int:
     """Mark slot t mod W as position t on the device (no host copy) and
     return the slot."""
     t = cache["t"]
-    slot = ring_slot(t, cache["k"].shape[2])
+    slot = ring_slot(t, cache["pos"].shape[0])
     cache["pos"][slot].fill_(t)
     return slot
+
+
+def _write_kv(cache: dict, name: str, layer: int, slot: int,
+              x: torch.Tensor) -> torch.Tensor:
+    """Write the new token's keys or values x (B, 1, KH, hd) into ``slot``
+    of ring layer ``layer`` in place and return the layer as attention
+    reads it: the layer itself, or for an int8 cache x quantised into the
+    slot and the whole layer dequantised to x's type (the reference's
+    ``_attn_decode_gqa_q8``)."""
+    if name + "_scale" not in cache:
+        return write_slot(cache[name][layer], slot, x)
+    values, scales = cache[name][layer], cache[name + "_scale"][layer]
+    values[:, slot], scales[:, slot] = quantize_kv(x[:, 0])
+    return dequantize_kv(values, scales, x.dtype)
 
 
 def _attn_decode(cfg, attn, hn: torch.Tensor, cache: dict, layer: int,
@@ -200,33 +237,60 @@ def _attn_decode(cfg, attn, hn: torch.Tensor, cache: dict, layer: int,
     ring layer ``layer``: writes the new key and value into ``slot`` in
     place, then attends through the decode-attention kernel (or the
     reference's masked ``attention_core`` with ``use_kernel=False``).  The
-    counterpart of the reference's ``_attn_decode_gqa``."""
+    counterpart of the reference's ``_attn_decode_gqa`` and
+    ``_attn_decode_gqa_q8``."""
     b = hn.shape[0]
     pos_arr = torch.full((b, 1), cache["t"], dtype=torch.int32,
                          device=hn.device)
     q, k_new, v_new = gqa_project_qkv(attn, hn, cfg, pos_arr)
-    k_l = write_slot(cache["k"][layer], slot, k_new)
-    v_l = write_slot(cache["v"][layer], slot, v_new)
-    scale = cfg.d_head ** -0.5
-    if use_kernel:
-        out = ops.decode_attention(q, k_l, v_l, cache["pos"], scale=scale)
-    else:
-        out = attention_core(q, k_l, v_l, (cache["pos"] >= 0)[None, :], scale)
+    k_l = _write_kv(cache, "k", layer, slot, k_new)
+    v_l = _write_kv(cache, "v", layer, slot, v_new)
+    out = _decode_core(q, k_l, v_l, cache["pos"], cfg.d_head ** -0.5,
+                       use_kernel)
     return dense(out.reshape(b, 1, cfg.n_heads * cfg.d_head), attn["wo"])
 
 
-def _check_extra(extra) -> None:
-    if extra is not None:
-        raise NotImplementedError("VLM patch prefixes are ROADMAP A-15d")
+def _decode_core(q, k_l, v_l, pos: torch.Tensor, scale: float,
+                 use_kernel: bool) -> torch.Tensor:
+    """One query token against a cache layer where ``pos >= 0``: the
+    decode-attention kernel, or the reference's ``attention_core``."""
+    if use_kernel:
+        return ops.decode_attention(q, k_l, v_l, pos, scale=scale)
+    return attention_core(q, k_l, v_l, (pos >= 0)[None, :], scale)
+
+
+def _mla_decode(cfg, attn, hn: torch.Tensor, cache: dict, layer: int,
+                slot: int) -> torch.Tensor:
+    """Single-token MLA block: the new token's latents go into ``slot`` of
+    the latent ring first, then the absorbed attention reads the ring (no
+    kernel of ours)."""
+    b = hn.shape[0]
+    pos_arr = torch.full((b, 1), cache["t"], dtype=torch.int32,
+                         device=hn.device)
+    c_q, c_kv, k_rope = mla_latents(attn, hn, cfg, pos_arr)
+    ckv_l = write_slot(cache["ckv"][layer], slot, c_kv)
+    kr_l = write_slot(cache["krope"][layer], slot, k_rope)
+    return mla_decode_absorbed(attn, c_q, cfg, ckv_l, kr_l,
+                               cache["pos"] >= 0, pos_arr)
+
+
+def _ffn(cfg, layer: Layer, hn: torch.Tensor):
+    """The block's MLP or MoE: (output, MoE aux loss or None)."""
+    if cfg.is_moe:
+        return moe_layer(layer.moe, hn, cfg)
+    return swiglu_mlp(layer.mlp, hn), None
 
 
 def make_decoder_lm(cfg: ArchConfig) -> ModelApi:
+    """Dense, MoE and VLM decoders, with GQA or MLA attention and a plain or
+    int8 KV cache."""
     eps = cfg.norm_eps
+    mla = cfg.attention == "mla"
 
     def init_params(generator: torch.Generator, dtype=torch.float32,
                     device=None) -> DecoderLM:
         """Random weights from ``generator`` (a generator on ``device``)
-        with the reference's distributions."""
+        with the reference's distributions (MoE routers float32)."""
         dev = resolve_device(device)
         emb = _init_embed(generator, cfg, dtype, dev)
         layers = [_init_block(generator, cfg, dtype, dev)
@@ -235,56 +299,76 @@ def make_decoder_lm(cfg: ArchConfig) -> ModelApi:
                          layers)
 
     def forward(params: DecoderLM, tokens: torch.Tensor, extra=None):
-        """tokens (B, S) → logits (B, S, V) and the auxiliary loss (0 for
-        the dense family)."""
-        _check_extra(extra)
-        h = F.embedding(tokens, params.embed)
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+        """tokens (B, S) (after a VLM's patches ``extra``) → logits
+        (B, n_patches + S, V) and the auxiliary loss, the sum of the MoE
+        layers' load-balancing losses (0 without experts)."""
+        h = _embed(params, cfg, tokens, extra)
+        positions = torch.arange(h.shape[1], dtype=torch.int32,
                                  device=h.device)
+        auxs = []
         for layer in params.layers:
-            h = h + gqa_attention(layer.attn, rmsnorm(h, layer.attn_norm, eps),
-                                  cfg, positions)
-            h = h + swiglu_mlp(layer.mlp, rmsnorm(h, layer.mlp_norm, eps))
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+            hn = rmsnorm(h, layer.attn_norm, eps)
+            if mla:
+                h = h + mla_prefill(layer.attn, hn, cfg, positions)[0]
+            else:
+                h = h + gqa_attention(layer.attn, hn, cfg, positions)
+            out, aux = _ffn(cfg, layer, rmsnorm(h, layer.mlp_norm, eps))
+            h = h + out
+            if aux is not None:
+                auxs.append(aux)
+        aux = torch.stack(auxs).sum() if auxs else \
+            torch.zeros((), dtype=torch.float32, device=h.device)
         return _logits(params, h, cfg), aux
 
     def init_cache(batch: int, max_len: int, dtype=torch.bfloat16,
                    device=None) -> dict:
-        return init_kv_cache(cfg, cfg.n_layers, batch,
-                             cache_window(cfg, max_len), dtype,
-                             resolve_device(device))
+        w, dev = cache_window(cfg, max_len), resolve_device(device)
+        if mla:
+            return init_mla_cache(cfg, cfg.n_layers, batch, w, dtype, dev)
+        return init_kv_cache(cfg, cfg.n_layers, batch, w, dtype, dev)
 
     def prefill(params: DecoderLM, tokens: torch.Tensor, max_len: int,
                 extra=None, *, use_kernel: bool = True):
-        """Run the prompt tokens (B, S); returns a cache of ring size
-        ``cache_window(cfg, max_len)`` in the parameters' type holding the
-        prompt's keys and values, and the last position's logits
-        (B, 1, V)."""
-        _check_extra(extra)
-        h = F.embedding(tokens, params.embed)
-        b, s = tokens.shape
+        """Run the prompt tokens (B, S), after a VLM's patches; returns a
+        cache of ring size ``cache_window(cfg, max_len)`` in the parameters'
+        type holding the prompt's keys and values (or MLA latents), and the
+        last position's logits (B, 1, V)."""
+        h = _embed(params, cfg, tokens, extra)
+        b, s = h.shape[:2]
         positions = torch.arange(s, dtype=torch.int32, device=h.device)
         cache = init_cache(b, max_len, h.dtype, h.device)
         for i, layer in enumerate(params.layers):
-            h = h + _attn_prefill(cfg, layer.attn,
-                                  rmsnorm(h, layer.attn_norm, eps), cache, i,
-                                  positions, use_kernel)
-            h = h + swiglu_mlp(layer.mlp, rmsnorm(h, layer.mlp_norm, eps))
+            hn = rmsnorm(h, layer.attn_norm, eps)
+            if mla:
+                out, c_kv, k_rope = mla_prefill(layer.attn, hn, cfg,
+                                                positions,
+                                                use_kernel=use_kernel)
+                _ring_scatter(cache, i, {"ckv": c_kv, "krope": k_rope},
+                              positions)
+            else:
+                out = _attn_prefill(cfg, layer.attn, hn, cache, i, positions,
+                                    use_kernel)
+            h = h + out
+            h = h + _ffn(cfg, layer, rmsnorm(h, layer.mlp_norm, eps))[0]
         cache["t"] = s
         return cache, _logits(params, h[:, -1:], cfg)
 
     def decode_step(params: DecoderLM, cache: dict, tokens: torch.Tensor, *,
                     use_kernel: bool = True):
         """One new token (B, 1) for every sequence against the standing
-        cache; writes its keys and values into slot t mod W of every layer
-        in place.  Returns logits (B, 1, V) and the cache."""
+        cache; writes its keys and values (or latents) into slot t mod W of
+        every layer in place.  Returns logits (B, 1, V) and the cache.  MLA
+        runs no kernel (``use_kernel`` is taken for a uniform API)."""
         slot = _advance_ring(cache)
         h = F.embedding(tokens, params.embed)
         for i, layer in enumerate(params.layers):
-            h = h + _attn_decode(cfg, layer.attn,
-                                 rmsnorm(h, layer.attn_norm, eps), cache, i,
-                                 slot, use_kernel)
-            h = h + swiglu_mlp(layer.mlp, rmsnorm(h, layer.mlp_norm, eps))
+            hn = rmsnorm(h, layer.attn_norm, eps)
+            if mla:
+                h = h + _mla_decode(cfg, layer.attn, hn, cache, i, slot)
+            else:
+                h = h + _attn_decode(cfg, layer.attn, hn, cache, i, slot,
+                                     use_kernel)
+            h = h + _ffn(cfg, layer, rmsnorm(h, layer.mlp_norm, eps))[0]
         cache["t"] += 1
         return _logits(params, h, cfg), cache
 
@@ -298,13 +382,13 @@ def _init_mamba_layers(generator, cfg, n: int, dtype, device) -> list:
     layers = []
     for _ in range(n):
         ssm = init_ssm_params(generator, cfg, torch.float32, device)
-        layers.append(MambaLayer(
-            torch.ones(cfg.d_model, dtype=dtype, device=device),
-            {k: x.to(dtype) for k, x in ssm.items()}))
+        layers.append(Layer(
+            norm=torch.ones(cfg.d_model, dtype=dtype, device=device),
+            ssm={k: x.to(dtype) for k, x in ssm.items()}))
     return layers
 
 
-def _mamba_prefill(cfg, layer: MambaLayer, h: torch.Tensor, cache: dict,
+def _mamba_prefill(cfg, layer: Layer, h: torch.Tensor, cache: dict,
                    index: tuple, use_kernel: bool) -> torch.Tensor:
     """One Mamba-2 block over the prompt; its final state and conv carry
     land in cache entry ``index`` of ``state`` and ``conv``."""
@@ -315,7 +399,7 @@ def _mamba_prefill(cfg, layer: MambaLayer, h: torch.Tensor, cache: dict,
     return h + out
 
 
-def _mamba_decode(cfg, layer: MambaLayer, h: torch.Tensor, cache: dict,
+def _mamba_decode(cfg, layer: Layer, h: torch.Tensor, cache: dict,
                   index: tuple) -> torch.Tensor:
     """One Mamba-2 block for one token, advancing cache entry ``index`` in
     place."""
@@ -339,7 +423,7 @@ def make_ssm_lm(cfg: ArchConfig) -> ModelApi:
                                             dtype, dev))
 
     def forward(params: DecoderLM, tokens: torch.Tensor, extra=None):
-        _check_extra(extra)
+        _no_extra(cfg, extra)
         h = F.embedding(tokens, params.embed)
         for layer in params.layers:
             out, _ = ssm_forward(layer.ssm,
@@ -357,7 +441,7 @@ def make_ssm_lm(cfg: ArchConfig) -> ModelApi:
                 extra=None, *, use_kernel: bool = True):
         """Run the prompt tokens (B, S) through the SSD scan (one kernel
         launch per layer); returns the cache and the last logits (B, 1, V)."""
-        _check_extra(extra)
+        _no_extra(cfg, extra)
         h = F.embedding(tokens, params.embed)
         cache = init_cache(tokens.shape[0], max_len, device=h.device)
         for i, layer in enumerate(params.layers):
@@ -403,7 +487,7 @@ def make_hybrid_lm(cfg: ArchConfig) -> ModelApi:
         return params.layers[s * inner:(s + 1) * inner]
 
     def forward(params: DecoderLM, tokens: torch.Tensor, extra=None):
-        _check_extra(extra)
+        _no_extra(cfg, extra)
         h = F.embedding(tokens, params.embed)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=h.device)
@@ -435,7 +519,7 @@ def make_hybrid_lm(cfg: ArchConfig) -> ModelApi:
         through the SSD scan, then the shared block through flash
         attention, its keys and values into the super-block's ring layer.
         Returns the cache and the last logits (B, 1, V)."""
-        _check_extra(extra)
+        _no_extra(cfg, extra)
         h = F.embedding(tokens, params.embed)
         b, s_len = tokens.shape
         positions = torch.arange(s_len, dtype=torch.int32, device=h.device)
@@ -471,48 +555,238 @@ def make_hybrid_lm(cfg: ArchConfig) -> ModelApi:
                     decode_step)
 
 
-_FAMILIES = {"dense": make_decoder_lm, "ssm": make_ssm_lm,
-             "hybrid": make_hybrid_lm}
+def _init_encdec_layer(generator, cfg, dtype, device, cross: bool) -> Layer:
+    """An encoder block (``cross=False``) or a decoder block with cross
+    attention, drawn in float32 and cast to ``dtype`` (every leaf, as the
+    reference's ``_cast``)."""
+    d, f = cfg.d_model, cfg.d_ff
+    f32 = torch.float32
+
+    def norm(prefix):
+        return {f"{prefix}_w": torch.ones(d, device=device),
+                f"{prefix}_b": torch.zeros(d, device=device)}
+
+    parts = {**norm("norm1"),
+             "attn": init_gqa_params(generator, cfg, f32, device),
+             **norm("norm2"),
+             "mlp": {"w1": normal(generator, (d, f), d ** -0.5, f32, device),
+                     "b1": torch.zeros(f, device=device),
+                     "w2": normal(generator, (f, d), f ** -0.5, f32, device),
+                     "b2": torch.zeros(d, device=device)}}
+    if cross:
+        parts["xattn"] = init_gqa_params(generator, cfg, f32, device)
+        parts.update(norm("norm3"))
+    return Layer(**{n: {k: a.to(dtype) for k, a in x.items()}
+                    if isinstance(x, dict) else x.to(dtype)
+                    for n, x in parts.items()})
+
+
+def make_encdec_lm(cfg: ArchConfig) -> ModelApi:
+    """whisper: ``n_encoder_layers`` pre-norm (LayerNorm) encoder blocks of
+    non-causal self-attention over the frame embeddings ``extra``
+    (B, T, D), with rope as the reference's ``gqa_project_qkv`` applies it
+    there too, and a GELU MLP; then ``n_layers`` decoder blocks of causal
+    self-attention, cross attention to the encoder's output (queries
+    without rope) and a GELU MLP.  The frames are cast to the parameters'
+    type (the reference takes them as given, and a float32 frame would run
+    its bf16 encoder in float32 by type promotion).  The cache keeps each
+    decoder layer's cross keys and values (``enc_k``, ``enc_v``
+    (L, B, T, KH, hd)) beside the self-attention ring, and ``enc_pos``, a
+    position table with every one of the T slots valid, so that a decode
+    step's cross attention runs through the decode-attention kernel."""
+    eps = cfg.norm_eps
+    scale = cfg.d_head ** -0.5
+
+    def init_params(generator: torch.Generator, dtype=torch.float32,
+                    device=None) -> DecoderLM:
+        dev = resolve_device(device)
+        emb = _init_embed(generator, cfg, dtype, dev)
+        enc = [_init_encdec_layer(generator, cfg, dtype, dev, cross=False)
+               for _ in range(cfg.n_encoder_layers)]
+        dec = [_init_encdec_layer(generator, cfg, dtype, dev, cross=True)
+               for _ in range(cfg.n_layers)]
+        return DecoderLM(emb["embed"], emb["lm_head"], emb["final_norm"],
+                         dec, enc_layers=enc)
+
+    def _frames(params: DecoderLM, extra):
+        if extra is None:
+            raise ValueError(f"{cfg.name}: the encoder-decoder needs its "
+                             "frame embeddings as extra (B, T, D)")
+        return extra.to(params.embed.dtype)
+
+    def encode(params: DecoderLM, frames: torch.Tensor, use_kernel=True):
+        """The encoder over frames (B, T, D) → (B, T, D)."""
+        h = frames
+        b, t, _ = h.shape
+        positions = torch.arange(t, dtype=torch.int32, device=h.device)
+        for layer in params.enc_layers:
+            hn = layernorm(h, layer.norm1_w, layer.norm1_b, eps)
+            q, k, v = gqa_project_qkv(layer.attn, hn, cfg, positions)
+            out = attention_full(q, k, v, positions, 0, scale, causal=False,
+                                 use_kernel=use_kernel)
+            h = h + dense(out.reshape(b, t, cfg.n_heads * cfg.d_head),
+                          layer.attn["wo"])
+            hn = layernorm(h, layer.norm2_w, layer.norm2_b, eps)
+            h = h + gelu_mlp(layer.mlp, hn)
+        return h
+
+    def _cross_kv(layer: Layer, enc_h: torch.Tensor):
+        b, t, _ = enc_h.shape
+        p = layer.xattn
+        shape = (b, t, cfg.n_kv_heads, cfg.d_head)
+        return (dense(enc_h, p["wk"], p.get("bk")).reshape(shape),
+                dense(enc_h, p["wv"], p.get("bv")).reshape(shape))
+
+    def _cross_q(layer: Layer, hn: torch.Tensor) -> torch.Tensor:
+        b, s, _ = hn.shape
+        p = layer.xattn
+        return dense(hn, p["wq"], p.get("bq")).reshape(b, s, cfg.n_heads,
+                                                       cfg.d_head)
+
+    def _cross_out(layer: Layer, out: torch.Tensor) -> torch.Tensor:
+        b, s = out.shape[:2]
+        return dense(out.reshape(b, s, cfg.n_heads * cfg.d_head),
+                     layer.xattn["wo"])
+
+    def _cross_full(layer, hn, enc_k, enc_v, use_kernel=True):
+        """Every query of hn (B, S, D) over every encoder frame: flash
+        attention, non-causal, S != T."""
+        out = attention_full(_cross_q(layer, hn), enc_k, enc_v, None, 0,
+                             scale, causal=False, use_kernel=use_kernel)
+        return _cross_out(layer, out)
+
+    def forward(params: DecoderLM, tokens: torch.Tensor, extra=None):
+        """tokens: decoder ids (B, S); extra: frame embeddings (B, T, D)."""
+        enc_h = encode(params, _frames(params, extra))
+        h = F.embedding(tokens, params.embed)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=h.device)
+        for layer in params.layers:
+            hn = layernorm(h, layer.norm1_w, layer.norm1_b, eps)
+            h = h + gqa_attention(layer.attn, hn, cfg, positions)
+            hn = layernorm(h, layer.norm3_w, layer.norm3_b, eps)
+            h = h + _cross_full(layer, hn, *_cross_kv(layer, enc_h))
+            hn = layernorm(h, layer.norm2_w, layer.norm2_b, eps)
+            h = h + gelu_mlp(layer.mlp, hn)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        return _logits(params, h, cfg), aux
+
+    def _cache(batch, max_len, dtype, device, enc_len):
+        cache = init_kv_cache(cfg, cfg.n_layers, batch,
+                              cache_window(cfg, max_len), dtype, device,
+                              quant=False)
+        shape = (cfg.n_layers, batch, enc_len, cfg.n_kv_heads, cfg.d_head)
+        cache["enc_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["enc_v"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["enc_pos"] = torch.arange(enc_len, dtype=torch.int32,
+                                        device=device)
+        return cache
+
+    def init_cache(batch: int, max_len: int, dtype=torch.bfloat16,
+                   device=None) -> dict:
+        return _cache(batch, max_len, dtype, resolve_device(device),
+                      cfg.encoder_seq)
+
+    def prefill(params: DecoderLM, tokens: torch.Tensor, max_len: int,
+                extra=None, *, use_kernel: bool = True):
+        """Encode the frames ``extra`` (B, T, D), then run the decoder
+        prompt (B, S): self-attention and cross attention through flash
+        attention, the self keys and values into the ring, each layer's
+        cross keys and values into ``enc_k``/``enc_v``.  Returns the cache
+        and the last logits (B, 1, V)."""
+        enc_h = encode(params, _frames(params, extra), use_kernel)
+        h = F.embedding(tokens, params.embed)
+        b, s = tokens.shape
+        positions = torch.arange(s, dtype=torch.int32, device=h.device)
+        cache = _cache(b, max_len, h.dtype, h.device, enc_h.shape[1])
+        for i, layer in enumerate(params.layers):
+            hn = layernorm(h, layer.norm1_w, layer.norm1_b, eps)
+            h = h + _attn_prefill(cfg, layer.attn, hn, cache, i, positions,
+                                  use_kernel)
+            hn = layernorm(h, layer.norm3_w, layer.norm3_b, eps)
+            enc_k, enc_v = _cross_kv(layer, enc_h)
+            cache["enc_k"][i], cache["enc_v"][i] = enc_k, enc_v
+            h = h + _cross_full(layer, hn, enc_k, enc_v, use_kernel)
+            hn = layernorm(h, layer.norm2_w, layer.norm2_b, eps)
+            h = h + gelu_mlp(layer.mlp, hn)
+        cache["t"] = s
+        return cache, _logits(params, h[:, -1:], cfg)
+
+    def decode_step(params: DecoderLM, cache: dict, tokens: torch.Tensor, *,
+                    use_kernel: bool = True):
+        """One new token (B, 1) per sequence: self-attention through the
+        decode-attention kernel on the ring (slot t mod W written in
+        place), cross attention through it on the layer's ``enc_k``/
+        ``enc_v`` with every slot valid.  Two launches a layer."""
+        slot = _advance_ring(cache)
+        h = F.embedding(tokens, params.embed)
+        for i, layer in enumerate(params.layers):
+            hn = layernorm(h, layer.norm1_w, layer.norm1_b, eps)
+            h = h + _attn_decode(cfg, layer.attn, hn, cache, i, slot,
+                                 use_kernel)
+            hn = layernorm(h, layer.norm3_w, layer.norm3_b, eps)
+            out = _decode_core(_cross_q(layer, hn), cache["enc_k"][i],
+                               cache["enc_v"][i], cache["enc_pos"], scale,
+                               use_kernel)
+            h = h + _cross_out(layer, out)
+            hn = layernorm(h, layer.norm2_w, layer.norm2_b, eps)
+            h = h + gelu_mlp(layer.mlp, hn)
+        cache["t"] += 1
+        return _logits(params, h, cfg), cache
+
+    return ModelApi(cfg, init_params, forward, init_cache, prefill,
+                    decode_step)
+
+
+_FAMILIES = {"dense": make_decoder_lm, "moe": make_decoder_lm,
+             "vlm": make_decoder_lm, "ssm": make_ssm_lm,
+             "hybrid": make_hybrid_lm, "encdec": make_encdec_lm}
 
 
 def lm_from_numpy(cfg: ArchConfig, params: dict, dtype=torch.float32,
                   device=None) -> DecoderLM:
     """The reference's parameter pytree, as numpy arrays with the layers
     stacked on leading axes (``jax.tree.map(np.asarray, params)``), as the
-    port's ``DecoderLM`` in ``dtype`` on ``device``: ``layers`` (L, ...)
-    for the dense and SSM families; ``mamba`` (n_super, attn_every, ...)
-    and ``shared`` for the hybrid family."""
-    reason = _unsupported(cfg)
-    if reason is not None:
-        raise NotImplementedError(f"{cfg.name}: not ported yet; {reason}")
+    port's ``DecoderLM`` in ``dtype`` on ``device`` (MoE routers stay
+    float32): ``layers`` (L, ...) for the dense, MoE, VLM and SSM families
+    (MLA's wdq, wuq, wdkv, wkr, wuk, wuv, wo, q_norm, kv_norm under
+    ``attn``; ``moe`` with ``router`` and ``experts`` w1, w3, w2 stacked
+    (E, ...)); ``mamba`` (n_super, attn_every, ...) and ``shared`` for the
+    hybrid family; ``enc_layers`` and ``dec_layers`` for the
+    encoder-decoder."""
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
     dev = resolve_device(device)
 
-    def tensor(a) -> torch.Tensor:
+    def tensor(a, dt=dtype) -> torch.Tensor:
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=dev, dtype=dtype)
+            device=dev, dtype=dt)
 
-    def group(tree: dict, i) -> dict:
-        return {n: tensor(a[i]) for n, a in tree.items()}
+    def layer(tree: dict, i) -> Layer:
+        parts = {}
+        for name, a in tree.items():
+            if name == "moe":
+                parts[name] = MoE(tensor(a["router"][i], torch.float32),
+                                  {n: tensor(x[i])
+                                   for n, x in a["experts"].items()})
+            elif isinstance(a, dict):
+                parts[name] = {n: tensor(x[i]) for n, x in a.items()}
+            else:
+                parts[name] = tensor(a[i])
+        return Layer(**parts)
 
-    def block(tree: dict, i) -> DecoderLayer:
-        return DecoderLayer(tensor(tree["attn_norm"][i]),
-                            tensor(tree["mlp_norm"][i]),
-                            group(tree["attn"], i), group(tree["mlp"], i))
-
-    shared = None
-    if cfg.family == "dense":
-        stack = params["layers"]
-        layers = [block(stack, i) for i in range(cfg.n_layers)]
-    elif cfg.family == "ssm":
-        stack = params["layers"]
-        layers = [MambaLayer(tensor(stack["norm"][i]), group(stack["ssm"], i))
-                  for i in range(cfg.n_layers)]
-    else:
+    shared = enc = None
+    if cfg.family == "hybrid":
         stack = params["mamba"]
         n_super, inner = stack["norm"].shape[:2]
-        layers = [MambaLayer(tensor(stack["norm"][s, j]),
-                             group(stack["ssm"], (s, j)))
+        layers = [layer(stack, (s, j))
                   for s in range(n_super) for j in range(inner)]
-        shared = block(params["shared"], ...)
+        shared = layer(params["shared"], ...)
+    elif cfg.family == "encdec":
+        enc = [layer(params["enc_layers"], i)
+               for i in range(cfg.n_encoder_layers)]
+        layers = [layer(params["dec_layers"], i) for i in range(cfg.n_layers)]
+    else:
+        layers = [layer(params["layers"], i) for i in range(cfg.n_layers)]
     return DecoderLM(tensor(params["embed"]), tensor(params["lm_head"]),
-                     tensor(params["final_norm"]), layers, shared)
+                     tensor(params["final_norm"]), layers, shared, enc)

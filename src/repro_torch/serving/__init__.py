@@ -1,5 +1,6 @@
 """Serving substrate of the port (counterpart of ``repro/serving``):
-workloads, the instance catalog, the FCFS pool simulator (cold, warm,
+workloads, the instance catalog (and ``H100_CELLS``, the cell catalog
+searched by ``serving.cells``), the FCFS pool simulator (cold, warm,
 routed and telemetry lanes), pool evaluation, routing policies, the
 telemetry plane, the autoscaler, fault handling (``serving.fault``), the
 capacity tiers (``serving.tiers``), the streaming simulator and the live
@@ -11,8 +12,9 @@ from .engine import DEFAULT_CELLS, CellType, ClusterEngine, ServingCell
 from .fault import (fail_instances, recover_from_capacity_change,
                     recover_from_failure, reprice)
 from .handoff import from_fields
-from .instance import (AWS_INSTANCES, MODEL_PROFILES, PAPER_POOLS,
-                       InstanceType, ModelProfile, measured_throughputs,
+from .cells import LLM_PROFILE, CellSearch, search_cells
+from .instance import (AWS_INSTANCES, H100_CELLS, MODEL_PROFILES,
+                       PAPER_POOLS, InstanceType, ModelProfile, measured_throughputs,
                        service_table_for, service_time_lut,
                        service_time_table)
 from .pool import (BUCKET_DIST_MIXES, DEFAULT_BOUNDS, DEFAULT_RATES,
@@ -31,7 +33,8 @@ from .workload import (BucketedWorkloadSpec, RequestBucket, Workload,
                        lognormal_batches)
 
 __all__ = [
-    "AWS_INSTANCES", "MODEL_PROFILES", "PAPER_POOLS",
+    "AWS_INSTANCES", "H100_CELLS", "MODEL_PROFILES", "PAPER_POOLS",
+    "LLM_PROFILE", "CellSearch", "search_cells",
     "InstanceType", "ModelProfile", "service_time_table", "service_time_lut",
     "service_table_for", "measured_throughputs",
     "PoolEvaluator", "best_homogeneous", "cost_effectiveness",

@@ -15,8 +15,9 @@ in the reference so that the relationships of paper Fig. 3 and Table 3
 hold, are copied unchanged.
 
 The reference's ``TPU_CELLS`` catalog is not copied: its rates are a TPU
-chip's, and nothing of the port reads them.  ``_DENSE_EFF`` keeps its
-cell entries so that the model profiles equal the reference's.
+chip's.  ``H100_CELLS`` takes its place, in the same form, for H100
+cards.  ``_DENSE_EFF`` keeps the reference's cell entries (and no H100
+ones) so that the model profiles equal the reference's.
 """
 
 from __future__ import annotations
@@ -81,6 +82,34 @@ AWS_INSTANCES: dict[str, InstanceType] = {
     "r5n":  InstanceType("r5n",  price=0.149,  flops=1.35e10, mem_bw=2.6e10, overhead=1.1e-3),
     # GPU accelerator
     "g4dn": InstanceType("g4dn", price=0.526,  flops=9.0e11,  mem_bw=1.6e11, overhead=4.2e-3),
+}
+
+
+# --------------------------------------------------------------------------
+# H100 serving-cell catalog: the reference's TPU cell catalog (its
+# ``TPU_CELLS``) in the same form, for cells of 1, 4 and 8 H100 SXM cards.
+# Effective rates take the reference's shares of peak (40 % of compute, 50 %
+# of memory bandwidth) of the card's published peaks: 989e12 FLOP/s dense
+# bf16 and 3.35e12 B/s HBM3.  The 4- and 8-card cells keep the reference's
+# sub-linear factors (compute 0.85 and 0.75, bandwidth 0.9 and 0.85) and
+# dispatch overheads: modelled, not measured (one card cannot measure a
+# cell of several).  H100_CARD_HOUR is an assumption carried over from the
+# reference's per-chip figure ($1.2 a chip-hour), not a quoted cloud price.
+# --------------------------------------------------------------------------
+H100_PEAK_FLOPS = 989e12
+H100_PEAK_BW = 3.35e12
+H100_CARD_HOUR = 1.2
+_CARD_F = H100_PEAK_FLOPS * 0.4
+_CARD_B = H100_PEAK_BW * 0.5
+H100_CELLS: dict[str, InstanceType] = {
+    "h100x1": InstanceType("h100x1", price=H100_CARD_HOUR, chips=1,
+                           flops=_CARD_F, mem_bw=_CARD_B, overhead=1.5e-3),
+    "h100x4": InstanceType("h100x4", price=H100_CARD_HOUR * 4, chips=4,
+                           flops=_CARD_F * 4 * 0.85,
+                           mem_bw=_CARD_B * 4 * 0.9, overhead=2.0e-3),
+    "h100x8": InstanceType("h100x8", price=H100_CARD_HOUR * 8, chips=8,
+                           flops=_CARD_F * 8 * 0.75,
+                           mem_bw=_CARD_B * 8 * 0.85, overhead=2.4e-3),
 }
 
 

@@ -55,6 +55,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
             "repro_torch.serving.handoff"} <= set(modules)
     assert {"repro_torch.launch.serve",
             "repro_torch.models.paper_models"} <= set(modules)
+    assert "repro_torch.serving.cells" in modules
     bad = [m for m in loaded if m == "jax" or m.startswith(("jax.", "jaxlib"))
            or m == "repro" or m.startswith("repro.")]
     assert bad == []
@@ -85,6 +86,9 @@ def _entry_points():
     lm = get_model(get_arch("qwen2.5-3b").reduced())
     ssm_lm = get_model(get_arch("mamba2-130m").reduced())
     hybrid_lm = get_model(get_arch("zamba2-2.7b").reduced())
+    moe_lm = get_model(get_arch("olmoe-1b-7b").reduced())
+    encdec_lm = get_model(get_arch("whisper-tiny").reduced())
+    from repro_torch.serving import H100_CELLS, search_cells
     return {
         "ClusterEngine": lambda: ClusterEngine("mtwnd", DEFAULT_CELLS),
         "RibbonOptimizer": lambda: RibbonOptimizer(space),
@@ -99,6 +103,11 @@ def _entry_points():
         "ssm_init_cache": lambda: ssm_lm.init_cache(1, 8),
         "hybrid_init_params": lambda: hybrid_lm.init_params(torch.Generator()),
         "hybrid_init_cache": lambda: hybrid_lm.init_cache(1, 8),
+        "moe_init_params": lambda: moe_lm.init_params(torch.Generator()),
+        "encdec_init_params": lambda: encdec_lm.init_params(
+            torch.Generator()),
+        "encdec_init_cache": lambda: encdec_lm.init_cache(1, 8),
+        "search_cells": lambda: search_cells(list(H100_CELLS.values())),
         "PoolSimulator": lambda: PoolSimulator(*pool_args),
         "PoolEvaluator": lambda: PoolEvaluator(*pool_args),
         "make_paper_setup": lambda: make_paper_setup("mtwnd", n_queries=10),
@@ -128,7 +137,9 @@ def _entry_points():
                                   "lm_init_params", "lm_init_cache",
                                   "lm_from_numpy", "ssm_init_params",
                                   "ssm_init_cache", "hybrid_init_params",
-                                  "hybrid_init_cache", "PoolSimulator",
+                                  "hybrid_init_cache", "moe_init_params",
+                                  "encdec_init_params", "encdec_init_cache",
+                                  "search_cells", "PoolSimulator",
                                   "PoolEvaluator", "make_paper_setup",
                                   "segment_from", "grid_from", "rescale",
                                   "StreamingSimulator",

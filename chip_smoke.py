@@ -9,12 +9,13 @@ serve driver and recovery, RIBBON's own search over the FCFS pool
 simulator for the paper's five models, its load-change adaptation (paper
 §5.5) over the simulator's warm, routed and telemetry lanes, a streamed
 million-query evaluation, the scenario engine's episodes, RIBBON over
-H100 serving cells, and the serving paths of eight LMs at full width and
+H100 serving cells, the serving paths of eight LMs at full width and
 depth (qwen2.5-3b, dense GQA, with a bf16 and with an int8 KV cache;
 mamba2-130m, Mamba-2 SSM; zamba2-2.7b, Mamba-2 with a shared attention
 block; minicpm3-4b, MLA; olmoe-1b-7b, MoE; internvl2-1b, a VLM's patch
-prefix; whisper-tiny, encoder-decoder), in phases that each print a line
-and raise on failure:
+prefix; whisper-tiny, encoder-decoder), and the training path of
+mamba2-130m and internvl2-1b at full width and depth, in phases that each
+print a line and raise on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles every CUDA kernel from ``src/repro_torch/csrc`` (nvcc,
@@ -142,6 +143,20 @@ and raise on failure:
    LM the plain path runs the kernel path's expert picks (``RoutingTape``;
    the tokens whose own picks differ are counted); its bf16 serving holds
    every MoE router in float32;
+8b. training (``repro_torch.launch``), mamba2-130m (the SSD-scan kernel)
+   and internvl2-1b (flash attention; its Qwen2-0.5B backbone on tokens
+   alone) at full width and depth, random weights from seed 0, B 4 x S
+   2048 of the synthetic token stream of seed 0: (a) one fp32 (TF32 off)
+   ``make_train_step`` on the kernel path against one on the reference's
+   math (``use_kernel=False``) from the same weights and batch, the loss
+   within 1e-5 relative and each leaf's gradient within 1e-4 x its max
+   |g| (for mamba2-130m widened by twice the plain path's own distance
+   from a step whose chunked scan is float64); (b) ``train()`` for 20
+   bf16 steps (fp32 master) in 2 microbatches with an async checkpoint at
+   step 10, then a run resumed from it: steps 11-20 equal bit for bit,
+   the mean loss of steps 16-20 below steps 1-5's; (c) 20 timed bf16
+   steps (eager, CUDA events), a microbatch's forward and backward, peak
+   memory, launches a step;
 9. the scenario engine (``repro_torch.scenario``) over mtwnd's simulator
    plane, the engine's GP on the host: diurnal-day at n 2000 / window
    400, spot-churn and tier-outage (the tiered plane: ``serving/fault.py``
@@ -171,7 +186,10 @@ read after it (no launch of any kernel of ours), just before each model's
 serve driver in phase 6b and read after its recovery (embedding_bag for
 mtwnd only, no other kernel), and just before each episode of phase 9b and
 read after it (embedding_bag for mtwnd only, no fcfs_scan: the live plane
-dispatches on the host), and set to 0 again
+dispatches on the host), before each part of phase 8b and read after it
+(per microbatch one launch of the model's kernel a layer in the forward
+and one in remat's recompute, the fp32 step's in float32, the rest in
+bfloat16; none on the plain paths), and set to 0 again
 just before each LM's serving runs and read just after
 them (qwen2.5-3b: one flash-attention launch per layer per prefill and one
 decode-attention launch per layer per step; mamba2-130m: one SSD-scan
@@ -212,6 +230,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from collections import deque
 from contextlib import contextmanager, nullcontext
@@ -228,6 +247,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import RibbonOptimizer, SearchSpace, run_ribbon  # noqa: E402
 from repro_torch.core.gp import gp_posterior  # noqa: E402
+from repro_torch.data import SyntheticTokens  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda  # noqa: E402
@@ -243,7 +263,8 @@ from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
 from repro_torch.launch.serve import recover, serve  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
-                                      make_prefill_step)
+                                      make_prefill_step, make_train_step)
+from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import layers as layers_module  # noqa: E402
 from repro_torch.models import ssm as ssm_module  # noqa: E402
 from repro_torch.models import paper_models as pm  # noqa: E402
@@ -273,7 +294,8 @@ from repro_torch.serving.routing import (NAMED_POLICIES,  # noqa: E402
 from repro_torch.serving.simulator import (StreamingSimulator,  # noqa: E402
                                            _cold_free0, _expand_slots,
                                            _fold_policy, _qos_threshold_f32)
-from repro_torch.models.transformer import get_model  # noqa: E402
+from repro_torch.models.transformer import get_model, make_trainable  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serving.workload import WorkloadSpec  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
@@ -419,6 +441,22 @@ LM_RUNS = [
     LMRun("whisper-tiny", 4, 400, 448, 48,
           {"flash_attention": 12}, {"decode_attention": 8}, extra=1500),
 ]
+
+# Training (slice 12): each model at full width and depth, B 4 x S 2048
+# tokens of the synthetic stream of seed 0, random weights from seed 0,
+# and the kernel its forward runs.  internvl2-1b trains its Qwen2-0.5B
+# backbone on tokens alone (no patches), as the reference's train does.
+TRAIN_RUNS = (("mamba2-130m", "ssd_scan"), ("internvl2-1b", "flash_attention"))
+TRAIN_B, TRAIN_S = 4, 2048
+# (b): bf16 parameters with the float32 master, 2 microbatches, 20 steps
+# through train(), an async checkpoint at step 10, then a resumed run of
+# steps 11-20 that must repeat the first run's losses bit for bit.
+TRAIN_STEPS, TRAIN_CUT, TRAIN_MICRO = 20, 10, 2
+# (a): one fp32 step (TF32 off) on the kernel path against one on the
+# reference's math: the loss within 1e-5 relative, each parameter's
+# gradient (read as AdamW's first moment after the step, (1 - b1)·g)
+# within TRAIN_GRAD_TOL x that leaf's max |g|.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
 
 # fcfs_scan at the batch lane's shape before its redesign (a 5-round
 # shuffle argmin a query; chip_smoke.py on BEFORE_CARD): device-only and
@@ -2119,12 +2157,44 @@ def _scan_fp64(x, dt, a_log, b, c, chunk=None):
     return torch.stack(ys, dim=1).to(x.dtype), state.float()
 
 
+def _chunked_fp64(x, dt, a_log, b, c, chunk):
+    """``ssm.ssd_chunked``'s math in float64 throughout, y cast back to x's
+    type: the exact side of the plain path's own rounding that autograd
+    can differentiate (the token-by-token ``_scan_fp64`` would keep 2048
+    states a layer for its backward)."""
+    f = torch.float64
+    bsz, slen, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    nc = slen // chunk
+    da = dt.to(f) * -torch.exp(a_log.to(f))
+    xc = (x.to(f) * dt.to(f)[..., None]).reshape(bsz, nc, chunk, h, p)
+    bh = per_head(b.to(f).reshape(bsz, nc, chunk, g, n), h, 3)
+    ch = per_head(c.to(f).reshape(bsz, nc, chunk, g, n), h, 3)
+    da_t = da.reshape(bsz, nc, chunk, h).movedim(-1, 2)
+    lmat = torch.exp(ssm_module.segsum(da_t))
+    scores = torch.einsum("bzqhn,bzkhn->bzhqk", ch, bh)
+    y_diag = torch.einsum("bzhqk,bzkhp->bzqhp", scores * lmat, xc)
+    da_cum = torch.cumsum(da_t, dim=-1)
+    states = torch.einsum("bzqhn,bzhq,bzqhp->bzhpn", bh,
+                          torch.exp(da_cum[..., -1:] - da_cum), xc)
+    chunk_decay = torch.exp(da_cum[..., -1])
+    state = torch.zeros((bsz, h, p, n), dtype=f, device=x.device)
+    prev = []
+    for z in range(nc):
+        prev.append(state)
+        state = state * chunk_decay[:, z, :, None, None] + states[:, z]
+    y_off = torch.einsum("bzqhn,bzhpn,bzhq->bzqhp", ch,
+                         torch.stack(prev, dim=1), torch.exp(da_cum))
+    return ((y_diag + y_off).reshape(bsz, slen, h, p).to(x.dtype),
+            state.float())
+
+
 @contextmanager
-def plain_scan_in_fp64():
-    """Within: the plain path's scan (``ssm.ssd_chunked``) is
-    ``_scan_fp64``; nothing else of the path changes."""
+def plain_scan_in_fp64(scan=_scan_fp64):
+    """Within: the plain path's scan (``ssm.ssd_chunked``) is ``scan``, a
+    float64 form; nothing else of the path changes."""
     chunked = ssm_module.ssd_chunked
-    ssm_module.ssd_chunked = _scan_fp64
+    ssm_module.ssd_chunked = scan
     try:
         yield
     finally:
@@ -2439,6 +2509,240 @@ def lm_path(run: LMRun) -> dict:
     return counts, by_dtype
 
 
+def _train_model(arch: str):
+    """``arch`` at full width and depth on the card, random float32 weights
+    from seed 0, every parameter trainable."""
+    api = get_model(get_arch(arch))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return api, make_trainable(api.init_params(gen, torch.float32, "cuda"))
+
+
+def _train_batch(vocab: int) -> dict:
+    chunk = torch.from_numpy(SyntheticTokens(vocab, seed=0).batch(
+        TRAIN_B, TRAIN_S)).cuda()
+    return {"tokens": chunk[:, :-1], "labels": chunk[:, 1:]}
+
+
+def _launched(label: str, kernel: str, want: int, dtype: str) -> None:
+    """Hold the launch counts since the last reset to ``want`` launches of
+    ``kernel``, all of ``dtype``, and no other kernel; then reset."""
+    counts = {fn.__name__[:-5]: fn.launches for fn in COUNTED}
+    by_dtype = dict(next(fn for fn in COUNTED
+                         if fn.__name__[:-5] == kernel).launches_by_dtype)
+    others = {k: n for k, n in counts.items() if k != kernel and n}
+    if counts[kernel] != want or by_dtype[dtype] != want or others:
+        raise AssertionError(f"training {label}: {kernel} launched "
+                             f"{counts[kernel]} times ({by_dtype}), expected "
+                             f"{want} in {dtype}; others {others}")
+    TRAIN_LAUNCHES.setdefault(kernel, {"float32": 0, "bfloat16": 0})[
+        dtype] += want
+    reset_counts()
+
+
+TRAIN_LAUNCHES: dict = {}
+
+
+def train_fp32_gate(arch: str, kernel: str) -> None:
+    """(a) One fp32 ``make_train_step`` from the same weights and batch on
+    the kernel path and on the reference's math (``use_kernel=False``):
+    the losses within TRAIN_LOSS_RTOL, each leaf's gradient within
+    TRAIN_GRAD_TOL x its max |g|.  A model with Mamba-2 layers also takes
+    the step with the plain path's chunked scan in float64 (forward and
+    backward): the reference's chunked form in fp32 loses up to some 1e-3
+    of a gradient's size where exp(da_cum[-1] - da_cum) takes the
+    difference of two cumulative sums of up to ~-3000 (the kernel keeps
+    that sum in fp64), and both fp32 paths differentiate that form.  The
+    plain path's own largest distance from the float64 gradients, over
+    every leaf, is that rounding's size; two fp32 evaluations may each lie
+    that far, on either side, so there the gate widens by twice it (as
+    ``lm_fp32`` widens the serving gate by the plain path's distance from
+    a float64 scan).  The kernel path launches the kernel twice a layer
+    (the forward and remat's recompute), the plain paths never."""
+    api, params = _train_model(arch)
+    batch = _train_batch(api.cfg.vocab_size)
+    n_layers = api.cfg.n_layers
+    names = ["kernel", "plain"]
+    if api.cfg.family in ("ssm", "hybrid"):
+        names.append("fp64 scan")
+    copies = {name: copy.deepcopy(params) for name in names[1:]}
+    copies["kernel"] = params
+    del params
+    out = {}
+    for name in names:
+        step = make_train_step(dataclasses.replace(
+            api, loss=partial(api.loss, use_kernel=name == "kernel")), 1)
+        p = copies.pop(name)
+        opt = adamw.init(dict(p.named_parameters()))
+        scan = plain_scan_in_fp64(_chunked_fp64) if name == "fp64 scan" \
+            else nullcontext()
+        with scan:
+            _, opt, metrics = step(p, opt, batch)
+        out[name] = (float(metrics["loss"]), opt.m)
+        _launched(f"{arch} fp32 {name} path", kernel,
+                  2 * n_layers if name == "kernel" else 0, "float32")
+        del opt, p
+        torch.cuda.empty_cache()
+
+    def gap(a: str, b: str) -> dict:
+        """max |a - b| over max |b|, leaf by leaf (of (1 - b1)·g)."""
+        return {n: (out[a][1][n] - m).abs().max().item()
+                / max(m.abs().max().item(), 1e-30)
+                for n, m in out[b][1].items()}
+
+    loss_rel = abs(out["kernel"][0] - out["plain"][0]) / abs(out["plain"][0])
+    between = gap("kernel", "plain")
+    worst_name = max(between, key=between.get)
+    text = (f"{arch} fp32 (TF32 off), one step, B {TRAIN_B} x S {TRAIN_S}: "
+            f"loss kernel path {out['kernel'][0]:.7f}, plain path "
+            f"{out['plain'][0]:.7f} (rel {loss_rel:.3g}, gate "
+            f"{TRAIN_LOSS_RTOL}); gradients kernel vs plain path, worst "
+            f"leaf {worst_name}: {between[worst_name]:.3g} x its max |g|")
+    noise = 0.0
+    if len(names) == 3:
+        kernel_off = gap("kernel", "fp64 scan")
+        noise = max(gap("plain", "fp64 scan").values())
+        text += (f"; from the fp64 scan's gradients the plain path lies up "
+                 f"to {noise:.3g}, the kernel path up to "
+                 f"{max(kernel_off.values()):.3g}")
+    gate = TRAIN_GRAD_TOL + 2 * noise
+    text += f" (gate {TRAIN_GRAD_TOL} + 2 x {noise:.3g})"
+    phase("train", text)
+    if not loss_rel <= TRAIN_LOSS_RTOL or not between[worst_name] <= gate:
+        raise AssertionError(f"training {arch}: fp32 kernel path vs plain "
+                             f"path loss {loss_rel:.3g}, gradient "
+                             f"{between[worst_name]:.3g} ({worst_name})")
+    del out
+    torch.cuda.empty_cache()
+
+
+def train_bf16_run(arch: str, kernel: str) -> list:
+    """(b) ``train()`` for TRAIN_STEPS bf16 steps in TRAIN_MICRO
+    microbatches, with an async checkpoint at step TRAIN_CUT (joined);
+    its step-20 checkpoint is removed, as if the run had been cut after
+    step TRAIN_CUT, and a second ``train(resume=True)`` runs steps
+    TRAIN_CUT + 1 .. TRAIN_STEPS: its losses must be the first run's, bit
+    for bit, and the mean loss of the last 5 steps below the first 5's."""
+    per_step = 2 * get_arch(arch).n_layers * TRAIN_MICRO
+    kw = dict(batch_size=TRAIN_B, seq_len=TRAIN_S, smoke=False,
+              n_micro=TRAIN_MICRO, param_dtype=torch.bfloat16, log_every=5,
+              seed=0, device="cuda")
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_") as ckpt:
+        t0 = time.perf_counter()
+        _, _, losses = train(arch, steps=TRAIN_STEPS, ckpt_dir=ckpt,
+                             ckpt_every=TRAIN_CUT, **kw)
+        first_s = time.perf_counter() - t0
+        _launched(f"{arch} bf16 run", kernel, per_step * TRAIN_STEPS,
+                  "bfloat16")
+        files = sorted(Path(ckpt).glob("step_*"))
+        size = sum(f.stat().st_size for f in files) / 2 ** 30
+        for f in Path(ckpt).glob(f"step_{TRAIN_STEPS:010d}.*"):
+            f.unlink()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _, _, resumed = train(arch, steps=TRAIN_STEPS - TRAIN_CUT,
+                              ckpt_dir=ckpt, ckpt_every=10 * TRAIN_STEPS,
+                              resume=True, **kw)
+        resumed_s = time.perf_counter() - t0
+        _launched(f"{arch} resumed run", kernel,
+                  per_step * (TRAIN_STEPS - TRAIN_CUT), "bfloat16")
+    torch.cuda.empty_cache()
+    first5, last5 = np.mean(losses[:5]), np.mean(losses[-5:])
+    equal = resumed == losses[TRAIN_CUT:]
+    phase("train", f"{arch} bf16, {TRAIN_MICRO} microbatches, "
+                   f"{TRAIN_STEPS} steps in {first_s:.1f} s (host clock, "
+                   f"two checkpoints of {size / 2:.2f} GiB each written "
+                   f"async), losses {' '.join(f'{x:.4f}' for x in losses)}; "
+                   f"mean of steps 1-5 {first5:.4f}, of steps 16-20 "
+                   f"{last5:.4f}; resumed from step {TRAIN_CUT} in "
+                   f"{resumed_s:.1f} s: steps {TRAIN_CUT + 1}-{TRAIN_STEPS} "
+                   + ("equal bit for bit" if equal else
+                      f"DIFFER: {resumed} against {losses[TRAIN_CUT:]}"))
+    if not last5 < first5:
+        raise AssertionError(f"training {arch}: the loss did not fall "
+                             f"({first5:.4f} -> {last5:.4f})")
+    if not equal:
+        raise AssertionError(f"training {arch}: the resumed run's losses "
+                             f"{resumed} differ from {losses[TRAIN_CUT:]}")
+    return losses
+
+
+def train_timing(arch: str, kernel: str) -> None:
+    """(c) The bf16 step of (b) timed: CUDA events around each of
+    TRAIN_STEPS steps (median of steps 3-20) and tokens/s; the split into
+    forward (the loss, autograd recording), backward (``autograd.grad``)
+    and the rest (optimizer, accumulation, norm: the step less
+    TRAIN_MICRO x forward + backward), each a median of 5; peak memory;
+    the kernel's launches a step."""
+    api, params = _train_model(arch)
+    params.to(torch.bfloat16)
+    opt = adamw.init(dict(params.named_parameters()))
+    step = make_train_step(api, TRAIN_MICRO, param_dtype=torch.bfloat16)
+    source = SyntheticTokens(api.cfg.vocab_size, seed=0)
+    batches = [source.batch(TRAIN_B, TRAIN_S) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for chunk in batches:
+        chunk = torch.from_numpy(chunk).cuda()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, metrics = step(params, opt, {"tokens": chunk[:, :-1],
+                                                  "labels": chunk[:, 1:]})
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = 2 * api.cfg.n_layers * TRAIN_MICRO
+    _launched(f"{arch} timed steps", kernel, per_step * TRAIN_STEPS,
+              "bfloat16")
+    step_ms = float(np.median(times[2:]))
+    mb = TRAIN_B // TRAIN_MICRO
+    micro = {"tokens": chunk[:mb, :-1], "labels": chunk[:mb, 1:]}
+    leaves = [p for p in params.parameters()]
+
+    def forward():
+        return api.loss(params, micro["tokens"], micro["labels"])
+
+    fwd_ms = median_event_ms(forward, 5)
+    both_ms = median_event_ms(lambda: torch.autograd.grad(forward(), leaves),
+                              5)
+    reset_counts()
+    rest_ms = step_ms - TRAIN_MICRO * both_ms
+    phase("train", f"{arch} bf16 step, B {TRAIN_B} x S {TRAIN_S} in "
+                   f"{TRAIN_MICRO} microbatches, eager (CUDA events, median "
+                   f"of steps 3-{TRAIN_STEPS}): {step_ms:.2f} ms, "
+                   f"{TRAIN_B * TRAIN_S / step_ms * 1e3:.0f} tokens/s; a "
+                   f"microbatch's forward {fwd_ms:.2f} ms, backward "
+                   f"{both_ms - fwd_ms:.2f} ms (remat's recompute in it); "
+                   f"optimizer, accumulation and norm {rest_ms:.2f} ms; peak "
+                   f"memory {peak:.2f} GiB; {kernel} launches a step "
+                   f"{per_step} bf16 = {TRAIN_MICRO} microbatches x "
+                   f"({api.cfg.n_layers} forward + {api.cfg.n_layers} remat "
+                   f"recompute); {CARD['smi']}")
+    del params, opt, leaves
+    torch.cuda.empty_cache()
+
+
+def train_path() -> dict:
+    """The training path of each TRAIN_RUNS model, (a)-(c); counts set to 0
+    before each part and held after it.  Returns each model's launches of
+    its kernel, by type."""
+    by_path = {}
+    for arch, kernel in TRAIN_RUNS:
+        TRAIN_LAUNCHES.clear()
+        reset_counts()
+        train_fp32_gate(arch, kernel)
+        train_bf16_run(arch, kernel)
+        train_timing(arch, kernel)
+        by_path[arch] = {kernel: dict(TRAIN_LAUNCHES[kernel])}
+        phase("launches", f"training {arch}: {kernel} "
+                          f"{sum(TRAIN_LAUNCHES[kernel].values())} launches "
+                          f"by type {TRAIN_LAUNCHES[kernel]}; no other "
+                          "kernel")
+    return by_path
+
+
 def kernel_line(launches: int, worst: float) -> dict:
     """embedding_bag at the live path's shape: the 8 tables' lookups of one
     MT-WND forward at batch 32 in one launch, indices from [0, 100) as the
@@ -2557,11 +2861,13 @@ def flash_line(launches: int, by_path: dict, by_dtype: dict,
                            "bf16", "bf16: mma.sync m16n8k16, cp.async K/V "
                            "ring x2, ldmatrix; fp32: scalar FMAs")
     # the kernel alone at other paths' shapes: zamba2-2.7b's shared block,
-    # minicpm3-4b's MLA prefill (v padded from 64), the whisper encoder and
-    # its cross attention, internvl2-1b's prefill (G 7)
+    # olmoe-1b-7b's prefill (H = KH 16, D 128), minicpm3-4b's MLA prefill
+    # (v padded from 64), the whisper encoder and its cross attention,
+    # internvl2-1b's prefill (G 7, also its training forward)
     for key, case in (
             ("zamba2_shape", ("zamba2", 4, 2048, 32, 32, 80, True, 4096,
                               2048)),
+            ("olmoe_shape", ("olmoe", 4, 2048, 16, 16, 128, True, 0, 2048)),
             ("mla_shape", _case(FLASH_CASES, "MLA")),
             ("encoder_shape", _case(FLASH_CASES, "whisper encoder")),
             ("cross_shape", _case(FLASH_CASES, "cross")),
@@ -3006,6 +3312,13 @@ def main() -> int:
             for dtype, n in counts.items():
                 total[dtype] += n
 
+    # Main path 5b: training at full width and depth (counts held inside).
+    for arch, counts in train_path().items():
+        for kernel, dtypes in counts.items():
+            by_path[f"train {arch}"] = {kernel: sum(dtypes.values())}
+            for dtype, n in dtypes.items():
+                by_dtype[kernel][dtype] += n
+
     # Main path 6: the scenario engine over the simulator plane.
     reset_counts()
     sc_dispatches = scenario_path()
@@ -3026,7 +3339,8 @@ def main() -> int:
     live_plane_phase()
 
     def launches(kernel: str) -> tuple[int, dict]:
-        counts = {arch: c[kernel] for arch, c in by_path.items() if c[kernel]}
+        counts = {arch: c[kernel] for arch, c in by_path.items()
+                  if c.get(kernel)}
         return sum(counts.values()), counts
 
     lines = [kernel_line(bag_launches, worst),

@@ -1,14 +1,80 @@
-"""Step builders: prefill and greedy decode, the serving steps.
+"""The steps: the train step (microbatched gradient accumulation and
+AdamW), prefill and greedy decode.
 
-Counterpart of ``repro/launch/steps.py`` (``make_prefill_step`` :75,
-``make_decode_step`` :82).  Training steps are not ported (ROADMAP A-15f).
+Counterpart of ``repro/launch/steps.py`` (``make_train_step`` :19,
+``make_prefill_step`` :75, ``make_decode_step`` :82).  The reference's
+``grad_shardings`` waits for the mesh (ROADMAP A-15g): the port trains on
+one device.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..models.transformer import ModelApi
+from ..models.transformer import DecoderLM, ModelApi
+from ..optim import adamw
+
+
+def load_params(params: DecoderLM, new: dict) -> None:
+    """Write tensors by parameter name into the model, in place; a tensor
+    of another type (a float32 router after a bf16 step) replaces the
+    parameter's data."""
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            t = new[name]
+            if t.dtype == p.dtype:
+                p.copy_(t)
+            else:
+                p.data = t.detach().clone()
+
+
+def make_train_step(api: ModelApi, n_micro: int, lr: float = 3e-4,
+                    param_dtype=None):
+    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "grad_norm"})``, the reference's step.
+
+    batch = {"tokens": (B, S), "labels": (B, S)[, "extra": (B, T, D)]} on
+    the parameters' device; params a ``make_trainable`` model, updated in
+    place with its AdamW state.  The batch is split into ``n_micro``
+    microbatches along B; each one's gradient is cast to float32 and added
+    up, the sum divided by ``n_micro`` (with bf16 parameters the
+    gradients are bf16 before the cast, the reference's bf16 gradient
+    path); the loss is the microbatches' mean and ``grad_norm`` the sqrt
+    of the float32 sum of g·g over every leaf.  ``param_dtype`` casts the
+    new parameters (None: they stay the master's float32)."""
+    def train_step(params: DecoderLM, opt_state: adamw.AdamWState,
+                   batch: dict):
+        tokens, labels = batch["tokens"], batch["labels"]
+        extra = batch.get("extra")
+        b = tokens.shape[0]
+        if b % n_micro:
+            raise ValueError(f"batch {b} does not split into {n_micro} "
+                             "microbatches")
+        mb = b // n_micro
+        named = dict(params.named_parameters())
+        leaves = list(named.values())
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in leaves]
+        losses = []
+        for i in range(n_micro):
+            part = slice(i * mb, (i + 1) * mb)
+            loss = api.loss(params, tokens[part], labels[part],
+                            None if extra is None else extra[part])
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            for a, g in zip(acc, grads):
+                if g is not None:
+                    a.add_(g.float())
+            losses.append(loss.detach())
+        torch._foreach_div_(acc, n_micro)
+        gnorm = torch.sqrt(torch.stack([torch.vdot(g.reshape(-1),
+                                                   g.reshape(-1))
+                                        for g in acc]).sum())
+        new_params, opt_state = adamw.update(dict(zip(named, acc)), opt_state,
+                                             lr=lr, param_dtype=param_dtype)
+        load_params(params, new_params)
+        return params, opt_state, {"loss": torch.stack(losses).mean(),
+                                   "grad_norm": gnorm}
+    return train_step
 
 
 def make_prefill_step(api: ModelApi, max_len: int):

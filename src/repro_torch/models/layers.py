@@ -9,10 +9,12 @@ reference's ``shard_map`` form of the MoE layer, which on one device is
 ``moe_layer`` (ROADMAP A-11 ports the sharded form).
 
 Full-sequence attention goes through ``kernels.ops.flash_attention`` (the
-CUDA kernel on a card, its plain version on the CPU); ``use_kernel=False``
-runs the reference model's own math instead (``attention_core`` under
-``causal_window_mask``), so a run can hold the kernel path against it on
-the card.  Attention softmaxes in float32 whatever the activation type.
+CUDA kernel on a card, its plain version on the CPU) inside
+``kernels.autograd.FlashAttention``, whose backward is the gradient of the
+reference model's own math (``attention_core`` under
+``causal_window_mask``); ``use_kernel=False`` runs that math instead, so a
+run can hold the kernel path against it on the card.  Attention softmaxes
+in float32 whatever the activation type.
 MLA's absorbed decode and the MoE layer's expert products run no kernel
 of ours, as in the reference (no Pallas kernel there either).
 """
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels import ops
+from ..kernels import autograd as kernel_autograd
 from ..kernels.ref import MASKED
 
 
@@ -117,6 +119,18 @@ def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
     return m
 
 
+def _masked_attention(q, k, v, positions, window: int, scale: float,
+                      causal: bool) -> torch.Tensor:
+    """The reference's ``attention_full`` math: ``attention_core`` under the
+    causal/window mask of ``positions``, or no mask."""
+    if causal:
+        mask = causal_window_mask(positions, positions, window)
+    else:
+        mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                          device=q.device)
+    return attention_core(q, k, v, mask, scale)
+
+
 def attention_full(q, k, v, positions: torch.Tensor, window: int,
                    scale: float, *, causal: bool = True,
                    use_kernel: bool = True) -> torch.Tensor:
@@ -125,17 +139,16 @@ def attention_full(q, k, v, positions: torch.Tensor, window: int,
     positions must be those, as forward and prefill pass them), or with
     ``causal=False`` every query over every key (an encoder's
     self-attention, cross attention; ``window`` and ``positions`` unused,
-    as in the reference)."""
+    as in the reference).  The kernel's backward is the gradient of the
+    math that ``use_kernel=False`` runs."""
+    window = window if causal else 0
     if use_kernel:
-        return ops.flash_attention(q, k, v, causal=causal,
-                                   window=window if causal else 0,
-                                   scale=scale)
-    if causal:
-        mask = causal_window_mask(positions, positions, window)
-    else:
-        mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
-                          device=q.device)
-    return attention_core(q, k, v, mask, scale)
+        return kernel_autograd.flash_attention(
+            q, k, v, causal=causal, window=window, scale=scale,
+            math=functools.partial(_masked_attention, positions=positions,
+                                   window=window, scale=scale,
+                                   causal=causal))
+    return _masked_attention(q, k, v, positions, window, scale, causal)
 
 
 def normal(generator: torch.Generator, shape, scale: float, dtype,
@@ -175,13 +188,14 @@ def gqa_project_qkv(params, x: torch.Tensor, cfg, positions: torch.Tensor):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def gqa_attention(params, x: torch.Tensor, cfg,
-                  positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence attention block, through the flash-attention kernel.
-    positions (S,) = 0 .. S-1."""
+def gqa_attention(params, x: torch.Tensor, cfg, positions: torch.Tensor,
+                  *, use_kernel: bool = True) -> torch.Tensor:
+    """Full-sequence attention block, through the flash-attention kernel
+    (or the reference's math with ``use_kernel=False``).  positions (S,) =
+    0 .. S-1."""
     q, k, v = gqa_project_qkv(params, x, cfg, positions)
     out = attention_full(q, k, v, positions, cfg.sliding_window,
-                         cfg.d_head ** -0.5)
+                         cfg.d_head ** -0.5, use_kernel=use_kernel)
     b, s = x.shape[:2]
     return dense(out.reshape(b, s, cfg.n_heads * cfg.d_head), params["wo"])
 
@@ -256,11 +270,8 @@ def mla_prefill(params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
     if use_kernel:
         width = max(nd + rd, vd)
         q, k, v = (F.pad(t, (0, width - t.shape[-1])) for t in (q, k, v))
-        out = ops.flash_attention(q, k, v, causal=True, window=0,
-                                  scale=scale)[..., :vd]
-    else:
-        out = attention_core(q, k, v, causal_window_mask(positions, positions,
-                                                         0), scale)
+    out = attention_full(q, k, v, positions, 0, scale,
+                         use_kernel=use_kernel)[..., :vd]
     return dense(out.reshape(b, s, h * vd), params["wo"]), c_kv, k_rope
 
 
@@ -308,10 +319,12 @@ class MoE(torch.nn.Module):
     (D, E) and ``experts`` w1, w3 (E, D, F) and w2 (E, F, D).
 
     The router is float32 whatever type the model serves in, as the
-    reference's ``init_moe_params`` keeps it: it is a buffer that
-    ``Module.to``, ``.half()`` and the like move between devices but never
-    cast (``_apply``), so ``params.to(torch.bfloat16)`` leaves it float32
-    and bit for bit as it was."""
+    reference's ``init_moe_params`` keeps it: ``Module.to``, ``.half()``
+    and the like move it between devices but never cast it (``_apply``),
+    so ``params.to(torch.bfloat16)`` leaves it float32 and bit for bit as
+    it was.  Serving holds it as a buffer; training makes it a parameter
+    (``make_trainable``), which the optimizer then casts like any other
+    (ROADMAP C-R32)."""
 
     def __init__(self, router: torch.Tensor, experts: dict):
         super().__init__()
@@ -320,11 +333,22 @@ class MoE(torch.nn.Module):
             {n: torch.nn.Parameter(x, requires_grad=False)
              for n, x in experts.items()})
 
+    def make_trainable(self) -> None:
+        """The router as a float32 parameter that takes gradients."""
+        if "router" in self._buffers:
+            self.router = torch.nn.Parameter(self._buffers.pop("router"))
+
     def _apply(self, fn, recurse=True):
-        router = self._buffers.pop("router")
+        is_param = "router" in self._parameters
+        router = (self._parameters if is_param else self._buffers).pop(
+            "router")
         super()._apply(fn, recurse)
         # an empty slice through fn tells the target device without a cast
-        self.register_buffer("router", router.to(fn(router[:0]).device))
+        moved = router.detach().to(fn(router[:0]).device)
+        if is_param:
+            self.router = torch.nn.Parameter(moved, router.requires_grad)
+        else:
+            self.register_buffer("router", moved)
         return self
 
 
@@ -350,8 +374,10 @@ def moe_capacity(tokens: int, cfg, capacity_factor: float) -> int:
 def moe_route(moe: MoE, xt: torch.Tensor, k: int):
     """The router in float32 for tokens xt (T, D): the softmax over the
     experts' logits (T, E), the top k experts of each token (T, k) and
-    their probabilities renormalised to sum to 1."""
-    probs = torch.softmax(dense(xt.float(), moe.router), dim=-1)
+    their probabilities renormalised to sum to 1.  A router a bf16
+    training step has cast runs in float32 on its bf16 values, as the
+    reference's type promotion does."""
+    probs = torch.softmax(dense(xt.float(), moe.router.float()), dim=-1)
     topk_p, topk_e = torch.topk(probs, k, dim=-1)
     return probs, topk_p / topk_p.sum(-1, keepdim=True).clamp_min(1e-9), \
         topk_e

@@ -9,19 +9,23 @@ order of roundings.  Per head, the discrete SSD recurrence of Dao & Gu
     y_t = C_t · h_t + D ⊙ x_t
 
 ``ssm_forward`` runs a whole sequence through ``kernels.ops.ssd_scan`` (the
-CUDA kernel on a card, its plain version on the CPU); ``use_kernel=False``
-runs the reference model's own chunked math instead (``ssd_chunked``), so a
-run can hold the kernel path against it on the card.  ``ssm_decode_step``
-is plain PyTorch (the reference has no kernel for it) and writes the
-cache layer's state and conv carry in place.
+CUDA kernel on a card, its plain version on the CPU) inside
+``kernels.autograd.SSDScan``, whose backward is the gradient of the
+reference model's own chunked math (``ssd_chunked``); ``use_kernel=False``
+runs that math instead, so a run can hold the kernel path against it on
+the card.  ``ssm_decode_step`` is plain PyTorch (the reference has no
+kernel for it) and writes the cache layer's state and conv carry in
+place.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
-from ..kernels import ops
+from ..kernels import autograd as kernel_autograd
 from ..kernels.ref import per_head, ssd_scan_ref
 from .layers import dense, rmsnorm
 
@@ -155,18 +159,21 @@ def ssd_reference_sequential(x, dt, a_log, b, c):
 def ssm_forward(params, x: torch.Tensor, cfg, *, use_kernel: bool = True):
     """Full-sequence Mamba-2 block from a zero state.  x (B, L, D) →
     (out (B, L, D), carry {"state" (B, H, P, N) float32, "conv"
-    (B, K-1, conv_dim)}).  ``use_kernel`` picks ``ops.ssd_scan`` (any L)
-    or the reference's ``ssd_chunked`` (chunk ``cfg.ssm_chunk``, or the
-    whole length when it does not divide L, as the reference falls back)."""
+    (B, K-1, conv_dim)}).  ``use_kernel`` picks ``ops.ssd_scan`` (any L;
+    its backward the gradient of ``ssd_chunked``) or the reference's
+    ``ssd_chunked`` (chunk ``cfg.ssm_chunk``, or the whole length when it
+    does not divide L, as the reference falls back)."""
     bsz, slen, _ = x.shape
     z, xbc, dt = _split_proj(cfg, dense(x, params["in_proj"]))
     xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"])
     x_in, b, c = _heads(cfg, F.silu(xbc))
     dt = F.softplus(dt.float() + params["dt_bias"])
+    chunk = cfg.ssm_chunk if slen % cfg.ssm_chunk == 0 else slen
     if use_kernel:
-        y, state = ops.ssd_scan(x_in, dt, params["A_log"].float(), b, c)
+        y, state = kernel_autograd.ssd_scan(
+            x_in, dt, params["A_log"], b, c,
+            math=functools.partial(ssd_chunked, chunk=chunk))
     else:
-        chunk = cfg.ssm_chunk if slen % cfg.ssm_chunk == 0 else slen
         y, state = ssd_chunked(x_in, dt, params["A_log"], b, c, chunk)
     y = y + params["D"].to(x.dtype)[:, None] * x_in
     y = y.reshape(bsz, slen, cfg.d_inner)

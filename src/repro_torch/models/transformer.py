@@ -8,6 +8,7 @@ Counterpart of ``repro/models/transformer.py`` (``make_decoder_lm`` :180,
 
     init_params(generator, dtype, device)             -> DecoderLM
     forward(params, tokens, extra)                    -> (logits, aux)
+    loss(params, tokens, labels, extra)               -> scalar
     init_cache(batch, max_len, dtype, device)         -> cache dict
     prefill(params, tokens, max_len, extra)           -> (cache, last_logits)
     decode_step(params, cache, tokens)                -> (logits, cache)
@@ -31,26 +32,39 @@ attention block, per super-block, each super-block with its own KV ring
 layer.  The encoder-decoder (whisper) encodes its frames (``extra``,
 (B, T, D)) with non-causal flash attention, attends from the decoder to
 them through flash attention in prefill and through the decode-attention
-kernel in each step.  ``prefill`` and ``decode_step`` take
-``use_kernel=False`` to run the reference model's own math instead, so a
-run can hold the kernel path against it on the card.  Caches are
-preallocated and written in place (``cache.py``): ``decode_step`` returns
-the same dict it was given, advanced one step.
+kernel in each step.  ``forward``, ``loss``, ``prefill`` and
+``decode_step`` take ``use_kernel=False`` to run the reference model's own
+math instead, so a run can hold the kernel path against it on the card.
+Caches are preallocated and written in place (``cache.py``):
+``decode_step`` returns the same dict it was given, advanced one step.
+
+Training (``launch.train``): ``loss`` is the reference's ``_lm_loss``;
+gradients flow through the kernels by ``kernels.autograd`` (the kernel
+forward, the gradient of the reference's math backward); with
+``cfg.remat`` each block of ``forward`` runs under
+``torch.utils.checkpoint`` while autograd records, as the reference's
+``jax.checkpoint`` (the block's kernels then run twice a step);
+``make_trainable`` turns a model's parameters on for gradients (serving
+keeps them frozen), and ``lm_tree``/``lm_untree`` map its parameters to
+and from the reference's pytree layout (layers stacked), the checkpoints'
+and the reference's optimizer state's.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Mapping
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels import ops
+from ..optim.adamw import AdamWState
 from .cache import (cache_window, dequantize_kv, init_kv_cache,
                     init_mla_cache, init_ssm_cache, quantize_kv, ring_slot,
                     write_slot)
@@ -67,6 +81,7 @@ class ModelApi:
     cfg: ArchConfig
     init_params: Callable
     forward: Callable
+    loss: Callable
     init_cache: Callable
     prefill: Callable
     decode_step: Callable
@@ -153,6 +168,31 @@ def _init_block(generator, cfg, dtype, device) -> Layer:
 
 def _logits(params: DecoderLM, h: torch.Tensor, cfg) -> torch.Tensor:
     return dense(rmsnorm(h, params.final_norm, cfg.norm_eps), params.lm_head)
+
+
+def _remat(cfg, block: Callable, *args):
+    """``block(*args)``; while autograd records and ``cfg.remat`` is set,
+    through ``torch.utils.checkpoint`` (the reference's ``_maybe_remat``):
+    the block's activations are dropped after the forward and recomputed,
+    its kernels included, in the backward."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
+
+
+def _lm_loss(forward: Callable) -> Callable:
+    def loss(params: DecoderLM, tokens: torch.Tensor, labels: torch.Tensor,
+             extra=None, *, use_kernel: bool = True) -> torch.Tensor:
+        """Mean next-token NLL of labels (B, S) under the log-softmax of the
+        logits cast to float32, plus 0.01 x the MoE aux loss; a VLM's
+        patch positions are dropped (the reference's ``_lm_loss``; its
+        encoder-decoder loss adds no aux, and the port's aux is 0 there)."""
+        logits, aux = forward(params, tokens, extra, use_kernel=use_kernel)
+        logits = logits[:, -labels.shape[1]:]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
+        return nll.mean() + 0.01 * aux
+    return loss
 
 
 def _no_extra(cfg, extra) -> None:
@@ -298,7 +338,20 @@ def make_decoder_lm(cfg: ArchConfig) -> ModelApi:
         return DecoderLM(emb["embed"], emb["lm_head"], emb["final_norm"],
                          layers)
 
-    def forward(params: DecoderLM, tokens: torch.Tensor, extra=None):
+    def block(layer: Layer, h: torch.Tensor, positions: torch.Tensor,
+              use_kernel: bool):
+        hn = rmsnorm(h, layer.attn_norm, eps)
+        if mla:
+            h = h + mla_prefill(layer.attn, hn, cfg, positions,
+                                use_kernel=use_kernel)[0]
+        else:
+            h = h + gqa_attention(layer.attn, hn, cfg, positions,
+                                  use_kernel=use_kernel)
+        out, aux = _ffn(cfg, layer, rmsnorm(h, layer.mlp_norm, eps))
+        return h + out, aux
+
+    def forward(params: DecoderLM, tokens: torch.Tensor, extra=None, *,
+                use_kernel: bool = True):
         """tokens (B, S) (after a VLM's patches ``extra``) → logits
         (B, n_patches + S, V) and the auxiliary loss, the sum of the MoE
         layers' load-balancing losses (0 without experts)."""
@@ -307,13 +360,7 @@ def make_decoder_lm(cfg: ArchConfig) -> ModelApi:
                                  device=h.device)
         auxs = []
         for layer in params.layers:
-            hn = rmsnorm(h, layer.attn_norm, eps)
-            if mla:
-                h = h + mla_prefill(layer.attn, hn, cfg, positions)[0]
-            else:
-                h = h + gqa_attention(layer.attn, hn, cfg, positions)
-            out, aux = _ffn(cfg, layer, rmsnorm(h, layer.mlp_norm, eps))
-            h = h + out
+            h, aux = _remat(cfg, block, layer, h, positions, use_kernel)
             if aux is not None:
                 auxs.append(aux)
         aux = torch.stack(auxs).sum() if auxs else \
@@ -372,8 +419,8 @@ def make_decoder_lm(cfg: ArchConfig) -> ModelApi:
         cache["t"] += 1
         return _logits(params, h, cfg), cache
 
-    return ModelApi(cfg, init_params, forward, init_cache, prefill,
-                    decode_step)
+    return ModelApi(cfg, init_params, forward, _lm_loss(forward), init_cache,
+                    prefill, decode_step)
 
 
 def _init_mamba_layers(generator, cfg, n: int, dtype, device) -> list:
@@ -422,13 +469,17 @@ def make_ssm_lm(cfg: ArchConfig) -> ModelApi:
                          _init_mamba_layers(generator, cfg, cfg.n_layers,
                                             dtype, dev))
 
-    def forward(params: DecoderLM, tokens: torch.Tensor, extra=None):
+    def block(layer: Layer, h: torch.Tensor, use_kernel: bool):
+        out, _ = ssm_forward(layer.ssm, rmsnorm(h, layer.norm, cfg.norm_eps),
+                             cfg, use_kernel=use_kernel)
+        return h + out
+
+    def forward(params: DecoderLM, tokens: torch.Tensor, extra=None, *,
+                use_kernel: bool = True):
         _no_extra(cfg, extra)
         h = F.embedding(tokens, params.embed)
         for layer in params.layers:
-            out, _ = ssm_forward(layer.ssm,
-                                 rmsnorm(h, layer.norm, cfg.norm_eps), cfg)
-            h = h + out
+            h = _remat(cfg, block, layer, h, use_kernel)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return _logits(params, h, cfg), aux
 
@@ -460,8 +511,8 @@ def make_ssm_lm(cfg: ArchConfig) -> ModelApi:
         cache["t"] += 1
         return _logits(params, h, cfg), cache
 
-    return ModelApi(cfg, init_params, forward, init_cache, prefill,
-                    decode_step)
+    return ModelApi(cfg, init_params, forward, _lm_loss(forward), init_cache,
+                    prefill, decode_step)
 
 
 def make_hybrid_lm(cfg: ArchConfig) -> ModelApi:
@@ -486,20 +537,26 @@ def make_hybrid_lm(cfg: ArchConfig) -> ModelApi:
     def _mamba(params: DecoderLM, s: int):
         return params.layers[s * inner:(s + 1) * inner]
 
-    def forward(params: DecoderLM, tokens: torch.Tensor, extra=None):
+    def super_block(params: DecoderLM, s: int, h: torch.Tensor,
+                    positions: torch.Tensor, use_kernel: bool):
+        """Super-block ``s``: its Mamba-2 layers, then the shared block."""
+        for layer in _mamba(params, s):
+            out, _ = ssm_forward(layer.ssm, rmsnorm(h, layer.norm, eps), cfg,
+                                 use_kernel=use_kernel)
+            h = h + out
+        sh = params.shared
+        h = h + gqa_attention(sh.attn, rmsnorm(h, sh.attn_norm, eps), cfg,
+                              positions, use_kernel=use_kernel)
+        return h + swiglu_mlp(sh.mlp, rmsnorm(h, sh.mlp_norm, eps))
+
+    def forward(params: DecoderLM, tokens: torch.Tensor, extra=None, *,
+                use_kernel: bool = True):
         _no_extra(cfg, extra)
         h = F.embedding(tokens, params.embed)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=h.device)
-        sh = params.shared
         for s in range(n_super):
-            for layer in _mamba(params, s):
-                out, _ = ssm_forward(layer.ssm, rmsnorm(h, layer.norm, eps),
-                                     cfg)
-                h = h + out
-            h = h + gqa_attention(sh.attn, rmsnorm(h, sh.attn_norm, eps), cfg,
-                                  positions)
-            h = h + swiglu_mlp(sh.mlp, rmsnorm(h, sh.mlp_norm, eps))
+            h = _remat(cfg, super_block, params, s, h, positions, use_kernel)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return _logits(params, h, cfg), aux
 
@@ -551,8 +608,8 @@ def make_hybrid_lm(cfg: ArchConfig) -> ModelApi:
         cache["t"] += 1
         return _logits(params, h, cfg), cache
 
-    return ModelApi(cfg, init_params, forward, init_cache, prefill,
-                    decode_step)
+    return ModelApi(cfg, init_params, forward, _lm_loss(forward), init_cache,
+                    prefill, decode_step)
 
 
 def _init_encdec_layer(generator, cfg, dtype, device, cross: bool) -> Layer:
@@ -614,20 +671,25 @@ def make_encdec_lm(cfg: ArchConfig) -> ModelApi:
                              "frame embeddings as extra (B, T, D)")
         return extra.to(params.embed.dtype)
 
+    def enc_block(layer: Layer, h: torch.Tensor, positions: torch.Tensor,
+                  use_kernel: bool):
+        b, t, _ = h.shape
+        hn = layernorm(h, layer.norm1_w, layer.norm1_b, eps)
+        q, k, v = gqa_project_qkv(layer.attn, hn, cfg, positions)
+        out = attention_full(q, k, v, positions, 0, scale, causal=False,
+                             use_kernel=use_kernel)
+        h = h + dense(out.reshape(b, t, cfg.n_heads * cfg.d_head),
+                      layer.attn["wo"])
+        hn = layernorm(h, layer.norm2_w, layer.norm2_b, eps)
+        return h + gelu_mlp(layer.mlp, hn)
+
     def encode(params: DecoderLM, frames: torch.Tensor, use_kernel=True):
         """The encoder over frames (B, T, D) → (B, T, D)."""
         h = frames
-        b, t, _ = h.shape
-        positions = torch.arange(t, dtype=torch.int32, device=h.device)
+        positions = torch.arange(h.shape[1], dtype=torch.int32,
+                                 device=h.device)
         for layer in params.enc_layers:
-            hn = layernorm(h, layer.norm1_w, layer.norm1_b, eps)
-            q, k, v = gqa_project_qkv(layer.attn, hn, cfg, positions)
-            out = attention_full(q, k, v, positions, 0, scale, causal=False,
-                                 use_kernel=use_kernel)
-            h = h + dense(out.reshape(b, t, cfg.n_heads * cfg.d_head),
-                          layer.attn["wo"])
-            hn = layernorm(h, layer.norm2_w, layer.norm2_b, eps)
-            h = h + gelu_mlp(layer.mlp, hn)
+            h = _remat(cfg, enc_block, layer, h, positions, use_kernel)
         return h
 
     def _cross_kv(layer: Layer, enc_h: torch.Tensor):
@@ -655,19 +717,25 @@ def make_encdec_lm(cfg: ArchConfig) -> ModelApi:
                              scale, causal=False, use_kernel=use_kernel)
         return _cross_out(layer, out)
 
-    def forward(params: DecoderLM, tokens: torch.Tensor, extra=None):
+    def dec_block(layer: Layer, h: torch.Tensor, positions: torch.Tensor,
+                  enc_h: torch.Tensor, use_kernel: bool):
+        hn = layernorm(h, layer.norm1_w, layer.norm1_b, eps)
+        h = h + gqa_attention(layer.attn, hn, cfg, positions,
+                              use_kernel=use_kernel)
+        hn = layernorm(h, layer.norm3_w, layer.norm3_b, eps)
+        h = h + _cross_full(layer, hn, *_cross_kv(layer, enc_h), use_kernel)
+        hn = layernorm(h, layer.norm2_w, layer.norm2_b, eps)
+        return h + gelu_mlp(layer.mlp, hn)
+
+    def forward(params: DecoderLM, tokens: torch.Tensor, extra=None, *,
+                use_kernel: bool = True):
         """tokens: decoder ids (B, S); extra: frame embeddings (B, T, D)."""
-        enc_h = encode(params, _frames(params, extra))
+        enc_h = encode(params, _frames(params, extra), use_kernel)
         h = F.embedding(tokens, params.embed)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=h.device)
         for layer in params.layers:
-            hn = layernorm(h, layer.norm1_w, layer.norm1_b, eps)
-            h = h + gqa_attention(layer.attn, hn, cfg, positions)
-            hn = layernorm(h, layer.norm3_w, layer.norm3_b, eps)
-            h = h + _cross_full(layer, hn, *_cross_kv(layer, enc_h))
-            hn = layernorm(h, layer.norm2_w, layer.norm2_b, eps)
-            h = h + gelu_mlp(layer.mlp, hn)
+            h = _remat(cfg, dec_block, layer, h, positions, enc_h, use_kernel)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return _logits(params, h, cfg), aux
 
@@ -734,8 +802,8 @@ def make_encdec_lm(cfg: ArchConfig) -> ModelApi:
         cache["t"] += 1
         return _logits(params, h, cfg), cache
 
-    return ModelApi(cfg, init_params, forward, init_cache, prefill,
-                    decode_step)
+    return ModelApi(cfg, init_params, forward, _lm_loss(forward), init_cache,
+                    prefill, decode_step)
 
 
 _FAMILIES = {"dense": make_decoder_lm, "moe": make_decoder_lm,
@@ -790,3 +858,97 @@ def lm_from_numpy(cfg: ArchConfig, params: dict, dtype=torch.float32,
         layers = [layer(params["layers"], i) for i in range(cfg.n_layers)]
     return DecoderLM(tensor(params["embed"]), tensor(params["lm_head"]),
                      tensor(params["final_norm"]), layers, shared, enc)
+
+
+def make_trainable(params: DecoderLM) -> DecoderLM:
+    """Turn every parameter on for gradients, in place, the MoE routers
+    made float32 parameters (serving holds them as frozen buffers).
+    Returns ``params``."""
+    for module in params.modules():
+        if isinstance(module, MoE):
+            module.make_trainable()
+    for p in params.parameters():
+        p.requires_grad_(True)
+    return params
+
+
+# the reference's name of each stack of layers, by family
+_STACKS = {"hybrid": {"layers": "mamba"}, "encdec": {"layers": "dec_layers"}}
+
+
+def _stack_name(cfg, name: str) -> str:
+    return _STACKS.get(cfg.family, {}).get(name, name)
+
+
+def lm_tree(cfg: ArchConfig, named: Mapping[str, torch.Tensor]) -> dict:
+    """Tensors by the port's parameter names (``named_parameters()``, or
+    an optimizer state's dict of the same names) as the reference's
+    parameter pytree: nested dicts under the reference's names, each stack
+    of layers stacked on a leading axis ((n_super, attn_every, ...) for the
+    hybrid's ``mamba``).  The inverse of ``lm_untree``."""
+    tree: dict = {}
+    stacks: dict[tuple, list] = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] in ("layers", "enc_layers"):
+            path = (_stack_name(cfg, parts[0]), *parts[2:])
+            stacks.setdefault(path, []).append((int(parts[1]), t))
+        else:
+            _put(tree, tuple(parts), t)
+    for path, items in stacks.items():
+        stacked = torch.stack([t for _, t in sorted(items,
+                                                    key=lambda it: it[0])])
+        if path[0] == "mamba":
+            stacked = stacked.reshape(cfg.n_layers // cfg.attn_every,
+                                      cfg.attn_every, *stacked.shape[1:])
+        _put(tree, path, stacked)
+    return tree
+
+
+def _put(tree: dict, path: tuple, leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def lm_untree(cfg: ArchConfig, tree: Mapping) -> dict:
+    """The reference's parameter pytree (leaves numpy arrays or tensors)
+    as leaves by the port's parameter names, each stacked leaf split into
+    its layers (views).  The inverse of ``lm_tree``."""
+    inverse = {ref: port for port, ref in _STACKS.get(cfg.family, {}).items()}
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for key, child in node.items():
+                walk(child, (*path, key))
+            return
+        top = path[0]
+        if top in ("layers", "mamba", "dec_layers", "enc_layers"):
+            if top == "mamba":
+                node = node.reshape(-1, *node.shape[2:])
+            port = inverse.get(top, top)
+            for i in range(node.shape[0]):
+                out[".".join((port, str(i), *path[1:]))] = node[i]
+        else:
+            out[".".join(path)] = node
+
+    walk(tree, ())
+    return out
+
+
+def adamw_from_numpy(cfg: ArchConfig, state, device=None) -> AdamWState:
+    """The reference's ``AdamWState`` with numpy leaves
+    (``jax.tree.map(np.asarray, state)``) as the port's, on ``device``:
+    the step as an int32 scalar, master, m and v float32 by parameter
+    name."""
+    dev = resolve_device(device)
+
+    def tensors(tree) -> dict:
+        return {n: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+                for n, a in lm_untree(cfg, tree).items()}
+
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=dev)
+    return AdamWState(step, tensors(state.master), tensors(state.m),
+                      tensors(state.v))

@@ -56,6 +56,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert {"repro_torch.launch.serve",
             "repro_torch.models.paper_models"} <= set(modules)
     assert "repro_torch.serving.cells" in modules
+    assert {"repro_torch.optim.adamw", "repro_torch.data.pipeline",
+            "repro_torch.serving.checkpoint", "repro_torch.kernels.autograd",
+            "repro_torch.launch.train"} <= set(modules)
     bad = [m for m in loaded if m == "jax" or m.startswith(("jax.", "jaxlib"))
            or m == "repro" or m.startswith("repro.")]
     assert bad == []
@@ -89,6 +92,7 @@ def _entry_points():
     moe_lm = get_model(get_arch("olmoe-1b-7b").reduced())
     encdec_lm = get_model(get_arch("whisper-tiny").reduced())
     from repro_torch.serving import H100_CELLS, search_cells
+    from repro_torch.launch.train import train
     return {
         "ClusterEngine": lambda: ClusterEngine("mtwnd", DEFAULT_CELLS),
         "RibbonOptimizer": lambda: RibbonOptimizer(space),
@@ -108,6 +112,7 @@ def _entry_points():
             torch.Generator()),
         "encdec_init_cache": lambda: encdec_lm.init_cache(1, 8),
         "search_cells": lambda: search_cells(list(H100_CELLS.values())),
+        "train": lambda: train("mamba2-130m", steps=1),
         "PoolSimulator": lambda: PoolSimulator(*pool_args),
         "PoolEvaluator": lambda: PoolEvaluator(*pool_args),
         "make_paper_setup": lambda: make_paper_setup("mtwnd", n_queries=10),
@@ -139,7 +144,7 @@ def _entry_points():
                                   "ssm_init_cache", "hybrid_init_params",
                                   "hybrid_init_cache", "moe_init_params",
                                   "encdec_init_params", "encdec_init_cache",
-                                  "search_cells", "PoolSimulator",
+                                  "search_cells", "train", "PoolSimulator",
                                   "PoolEvaluator", "make_paper_setup",
                                   "segment_from", "grid_from", "rescale",
                                   "StreamingSimulator",

@@ -157,6 +157,24 @@ print a line and raise on failure:
    the mean loss of steps 16-20 below steps 1-5's; (c) 20 timed bf16
    steps (eager, CUDA events), a microbatch's forward and backward, peak
    memory, launches a step;
+10. the mesh layer (``launch.mesh``, ``launch.sharding``):
+   ``make_local_mesh()`` is the 1 x 1 ("data", "model") mesh on cuda:0,
+   ``make_production_mesh()`` raises on one card (its message printed);
+   for each 8b model ``train()`` for 3 bf16 steps at 8b's shape and
+   arguments with ``mesh=None`` and with the local mesh: losses, every
+   parameter and the AdamW state (master and moments: every gradient)
+   equal bit for bit, the losses also 8b's first 3; every parameter
+   leaf's sharding replicated; launches held as 8b holds them;
+11. the roofline (``repro_torch.roofline``) of every path phases 8 and 8b
+   time, walked on the meta device with the same calls at the same shapes
+   (each LM's bf16 prefill and one decode step, each model's bf16 train
+   step): flops, HBM bytes, compute and memory terms on one H100 beside
+   the measured time (device-only; training eager), gated: (a) the walk's
+   flops on the plain path (``use_kernel=False``) equal
+   ``FlopCounterMode``'s for the same call, (b) each kernel's formula at
+   ``PERF.md`` §6's shapes equals its closed form computed here, (c) no
+   measured time below its path's compute term; the memory term is
+   printed, not gated (an eager op's operands may be served from L2);
 9. the scenario engine (``repro_torch.scenario``) over mtwnd's simulator
    plane, the engine's GP on the host: diurnal-day at n 2000 / window
    400, spot-churn and tier-outage (the tiered plane: ``serving/fault.py``
@@ -189,7 +207,8 @@ read after it (embedding_bag for mtwnd only, no fcfs_scan: the live plane
 dispatches on the host), before each part of phase 8b and read after it
 (per microbatch one launch of the model's kernel a layer in the forward
 and one in remat's recompute, the fp32 step's in float32, the rest in
-bfloat16; none on the plain paths), and set to 0 again
+bfloat16; none on the plain paths), before each run of phase 10 and read
+after it (as phase 8b's bf16 runs), and set to 0 again
 just before each LM's serving runs and read just after
 them (qwen2.5-3b: one flash-attention launch per layer per prefill and one
 decode-attention launch per layer per step; mamba2-130m: one SSD-scan
@@ -241,6 +260,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import FlopCounterMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -261,6 +281,9 @@ from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
                                      per_head, ssd_scan_ref)
 from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
+from repro_torch.launch import sharding as shp  # noqa: E402
+from repro_torch.launch.mesh import (make_local_mesh,  # noqa: E402
+                                     make_production_mesh)
 from repro_torch.launch.serve import recover, serve  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step, make_train_step)
@@ -296,6 +319,9 @@ from repro_torch.serving.simulator import (StreamingSimulator,  # noqa: E402
                                            _fold_policy, _qos_threshold_f32)
 from repro_torch.models.transformer import get_model, make_trainable  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.roofline import op_walk  # noqa: E402
+from repro_torch.roofline.analysis import (RooflineTerms,  # noqa: E402
+                                           typed_compute_s)
 from repro_torch.serving.workload import WorkloadSpec  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
@@ -457,6 +483,14 @@ TRAIN_STEPS, TRAIN_CUT, TRAIN_MICRO = 20, 10, 2
 # gradient (read as AdamW's first moment after the step, (1 - b1)·g)
 # within TRAIN_GRAD_TOL x that leaf's max |g|.
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+# Phase 10: train() steps under the one-card mesh and without one.
+MESH_STEPS = 3
+# Phase 11: each kernel's figure at its path's shape as PERF.md §6 prints
+# it (flops of flash and ssd_scan, bytes of the rest), for the printout.
+SECTION6 = {"flash_attention": "6.557e10 flop",
+            "ssd_scan": "7.33e9 flop, 58.5 MB",
+            "decode_attention": "8.23 MB (the 2000 valid slots)",
+            "embedding_bag": "261 KB (the distinct rows)"}
 
 # fcfs_scan at the batch lane's shape before its redesign (a 5-round
 # shuffle argmin a query; chip_smoke.py on BEFORE_CARD): device-only and
@@ -2394,9 +2428,10 @@ def lm_phase(api, params, batch, run: LMRun) -> dict:
             "prefill_ms": prefill_ms, "step_ms": step_ms}
 
 
-def lm_device_phase(api, params, batch, lm: dict, run: LMRun) -> None:
+def lm_device_phase(api, params, batch, lm: dict, run: LMRun) -> dict:
     """Device-only bf16 prefill and decode-step times (CUDA graph replays,
-    launched outside the counted run) against the eager times."""
+    launched outside the counted run) against the eager times; returns the
+    device-only ms by call."""
     tokens, extra = batch["tokens"], batch["extra"]
     cache, logits = api.prefill(params, tokens, run.max_len, extra)
     tok = _greedy(logits)
@@ -2410,6 +2445,7 @@ def lm_device_phase(api, params, batch, lm: dict, run: LMRun) -> None:
                 f"the card idles {1 - prefill_dev / lm['prefill_ms']:.1%} of "
                 f"an eager prefill and {1 - step_dev / lm['step_ms']:.1%} of "
                 f"an eager decode step")
+    return {"prefill": prefill_dev, "decode step": step_dev}
 
 
 def _extra_text(run: LMRun) -> str:
@@ -2456,8 +2492,9 @@ def lm_path(run: LMRun) -> dict:
     seed 0: counts set to 0 just before its serving runs and read just
     after, each kernel's count held to ``run``'s launches per prefill and
     per step, and the attention kernels' counts by type to the fp32 run's
-    1 prefill and ``run.steps`` steps, the rest bf16.  Returns the counts
-    and the attention kernels' counts by type."""
+    1 prefill and ``run.steps`` steps, the rest bf16.  Returns the counts,
+    the attention kernels' counts by type and the bf16 device-only ms of a
+    prefill and a decode step."""
     api = get_model(dataclasses.replace(get_arch(run.arch),
                                         **dict(run.changes)))
     cfg = api.cfg
@@ -2503,10 +2540,10 @@ def lm_path(run: LMRun) -> dict:
         for name, per in per_unit.items()) + "; no other kernel" + "".join(
             f"; {name} by type {c}" for name, c in by_dtype.items()
             if any(c.values())))
-    lm_device_phase(api, params, batch, lm, run)
+    device_ms = lm_device_phase(api, params, batch, lm, run)
     del params, batch
     torch.cuda.empty_cache()
-    return counts, by_dtype
+    return counts, by_dtype, device_ms
 
 
 def _train_model(arch: str):
@@ -2666,13 +2703,13 @@ def train_bf16_run(arch: str, kernel: str) -> list:
     return losses
 
 
-def train_timing(arch: str, kernel: str) -> None:
+def train_timing(arch: str, kernel: str) -> float:
     """(c) The bf16 step of (b) timed: CUDA events around each of
     TRAIN_STEPS steps (median of steps 3-20) and tokens/s; the split into
     forward (the loss, autograd recording), backward (``autograd.grad``)
     and the rest (optimizer, accumulation, norm: the step less
     TRAIN_MICRO x forward + backward), each a median of 5; peak memory;
-    the kernel's launches a step."""
+    the kernel's launches a step.  Returns the step's ms."""
     api, params = _train_model(arch)
     params.to(torch.bfloat16)
     opt = adamw.init(dict(params.named_parameters()))
@@ -2722,25 +2759,251 @@ def train_timing(arch: str, kernel: str) -> None:
                    f"recompute); {CARD['smi']}")
     del params, opt, leaves
     torch.cuda.empty_cache()
+    return step_ms
 
 
-def train_path() -> dict:
+def train_path() -> tuple[dict, dict]:
     """The training path of each TRAIN_RUNS model, (a)-(c); counts set to 0
     before each part and held after it.  Returns each model's launches of
-    its kernel, by type."""
-    by_path = {}
+    its kernel, by type, and its bf16 run's losses and timed step ms."""
+    by_path, runs = {}, {}
     for arch, kernel in TRAIN_RUNS:
         TRAIN_LAUNCHES.clear()
         reset_counts()
         train_fp32_gate(arch, kernel)
-        train_bf16_run(arch, kernel)
-        train_timing(arch, kernel)
+        losses = train_bf16_run(arch, kernel)
+        runs[arch] = {"losses": losses, "step_ms": train_timing(arch, kernel)}
         by_path[arch] = {kernel: dict(TRAIN_LAUNCHES[kernel])}
         phase("launches", f"training {arch}: {kernel} "
                           f"{sum(TRAIN_LAUNCHES[kernel].values())} launches "
                           f"by type {TRAIN_LAUNCHES[kernel]}; no other "
                           "kernel")
+    return by_path, runs
+
+
+def mesh_phase(runs: dict) -> dict:
+    """Phase 10: the local mesh on cuda:0, the production mesh refused on
+    one card, and for each TRAIN_RUNS model ``train()`` for MESH_STEPS bf16
+    steps at phase 8b's shape and arguments without a mesh and under the
+    local mesh: the losses (also phase 8b's first MESH_STEPS), every
+    parameter and the AdamW state (master and moments, which hold every
+    gradient) equal bit for bit, every parameter leaf's sharding
+    replicated, the kernel's launches held as phase 8b holds them.
+    Returns each model's launches by type."""
+    mesh = make_local_mesh()
+    if mesh.devices != [torch.device("cuda", 0)] or \
+            mesh.shape != {"data": 1, "model": 1}:
+        raise AssertionError(f"the local mesh is {mesh}")
+    try:
+        make_production_mesh()
+    except RuntimeError as err:
+        refused = str(err)
+    else:
+        raise AssertionError("make_production_mesh() built a mesh on one card")
+    phase("mesh", f"make_local_mesh(): axes {mesh.axis_names}, shape "
+                  f"{mesh.shape} on {mesh.devices[0]}; make_production_mesh() "
+                  f"raises: {refused}")
+    by_path = {}
+    kw = dict(steps=MESH_STEPS, batch_size=TRAIN_B, seq_len=TRAIN_S,
+              smoke=False, n_micro=TRAIN_MICRO, param_dtype=torch.bfloat16,
+              log_every=MESH_STEPS, seed=0)
+    for arch, kernel in TRAIN_RUNS:
+        per_run = 2 * get_arch(arch).n_layers * TRAIN_MICRO * MESH_STEPS
+        TRAIN_LAUNCHES.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = {}
+        for name, where in (("no mesh", {"device": "cuda"}),
+                            ("local mesh", {"mesh": mesh})):
+            out[name] = train(arch, **kw, **where)
+            _launched(f"{arch} {name} run", kernel, per_run, "bfloat16")
+        secs = time.perf_counter() - t0
+        (p0, o0, l0), (p1, o1, l1) = out.values()
+        s0, s1 = p0.state_dict(), p1.state_dict()
+        same = {
+            "losses": l0 == l1 == runs[arch]["losses"][:MESH_STEPS],
+            "parameters": s0.keys() == s1.keys() and all(
+                torch.equal(s0[n], s1[n]) for n in s0),
+            "AdamW state": all(torch.equal(x[n], y[n])
+                               for x, y in zip(o0[1:], o1[1:]) for n in x)}
+        shardings = shp.param_shardings(p1, get_arch(arch), mesh)
+        replicated = sum(not any(s.spec) for s in shardings.values())
+        phase("mesh", f"{arch} bf16, {MESH_STEPS} steps of B {TRAIN_B} x S "
+                      f"{TRAIN_S} in {TRAIN_MICRO} microbatches, with and "
+                      f"without the local mesh ({secs:.1f} s, host clock): "
+                      f"losses {' '.join(f'{x:.4f}' for x in l1)}; "
+                      + "; ".join(f"{k} {'equal bit for bit' if v else 'DIFFER'}"
+                                  for k, v in same.items())
+                      + f" (losses also phase 8b's first {MESH_STEPS}); "
+                      f"{replicated} of {len(shardings)} parameter leaves "
+                      f"resolve to replicated; {kernel} launches "
+                      f"{TRAIN_LAUNCHES[kernel]}")
+        if not all(same.values()) or replicated != len(shardings):
+            raise AssertionError(f"mesh {arch}: {same}, {replicated} of "
+                                 f"{len(shardings)} leaves replicated")
+        by_path[f"mesh {arch}"] = {kernel: dict(TRAIN_LAUNCHES[kernel])}
+        del out, p0, p1, o0, o1, s0, s1
+        torch.cuda.empty_cache()
     return by_path
+
+
+def _walk(fn, *args, **kwargs):
+    """(the op walk's counts, fn's result) of one call on meta tensors."""
+    walk = op_walk.OpWalk()
+    with walk:
+        out = fn(*args, **kwargs)
+    return walk.acc, out
+
+
+def _plain_flops(label: str, fn, *args, **kwargs) -> None:
+    """Gate (a): the walk's flops of ``fn`` equal FlopCounterMode's."""
+    acc, _ = _walk(fn, *args, **kwargs)
+    with FlopCounterMode(display=False) as counter:
+        fn(*args, **kwargs)
+    if acc.flops != counter.get_total_flops():
+        raise AssertionError(f"roofline {label}, plain path: the walk counts "
+                             f"{acc.flops:.6g} flop, FlopCounterMode "
+                             f"{counter.get_total_flops():.6g}")
+
+
+def _formula_gate() -> None:
+    """Gate (b): each kernel's formula in the walk at PERF.md §6's shapes
+    against its closed form computed here from those shapes (a walk sees
+    no data: decode attention counts every slot of the cache,
+    embedding_bag every looked-up row, where §6 counts the valid slots
+    and the distinct rows of its run's data)."""
+    meta, bf16 = "meta", torch.bfloat16
+
+    def empty(*shape, dtype=bf16):
+        return torch.empty(shape, dtype=dtype, device=meta)
+
+    _, b, s, h, kh, d, causal, window, t = FLASH_CASES[0]
+    q, k = empty(b, s, h, d), empty(b, t, kh, d)
+    cases = {"flash_attention": (
+        lambda: ops.flash_attention(q, k, k, causal=causal, window=window),
+        4 * d * b * h * _valid_pairs(s, t, causal, window),
+        2 * (2 * q.numel() + 2 * k.numel()))}
+    _, b, t, kh, g, d, _, _ = DECODE_CASES[0]
+    dq, dk, pos = empty(b, 1, kh * g, d), empty(b, t, kh, d), \
+        empty(t, dtype=torch.int32)
+    cases["decode_attention"] = (
+        lambda: ops.decode_attention(dq, dk, dk, pos),
+        4 * d * b * kh * g * t, 2 * (2 * dq.numel() + 2 * b * t * kh * d)
+        + 4 * t)
+    case = SSD_CASES[0]
+    _, b, l, h, p, g, n, _ = case
+    x, dt, a_log, bc = (empty(b, l, h, p), empty(b, l, h, dtype=torch.float32),
+                        empty(h, dtype=torch.float32), empty(b, l, g, n))
+    cases["ssd_scan"] = (lambda: ops.ssd_scan(x, dt, a_log, bc, bc),
+                         *_ssd_work(case, 2))
+    n_tables, v, d, bag, n_bags = (CFG["n_tables"], CFG["vocab"], CFG["emb"],
+                                   CFG["bag"], 32)
+    idx, tables = (empty(n_bags, n_tables, bag, dtype=torch.int32),
+                   empty(n_tables, v, d, dtype=torch.float32))
+    cases["embedding_bag"] = (
+        lambda: ops.embedding_bag(idx, tables), 0,
+        idx.numel() * 4 + idx.numel() * d * 4 + n_bags * n_tables * d * 4)
+    for name, (fn, flops, nbytes) in cases.items():
+        acc, _ = _walk(fn)
+        got = (acc.kernels[name]["flops"], acc.kernels[name]["bytes"])
+        phase("roofline", f"{name} formula at PERF.md §6's shape: {got[0]:.4g} "
+                          f"flop, {got[1] / 1e6:.4f} MB; closed form "
+                          f"{flops:.4g} flop, {nbytes / 1e6:.4f} MB; §6 "
+                          f"prints {SECTION6[name]}")
+        if got != (flops, nbytes) or acc.kernels[name]["calls"] != 1:
+            raise AssertionError(f"roofline: {name} counted {got}, closed "
+                                 f"form {(flops, nbytes)}")
+
+
+def _meta_lm(run: LMRun):
+    """``run``'s model in bf16 on meta (its MoE routers float32, as served)
+    and its batch: tokens, and float32 patch or frame rows."""
+    api = get_model(dataclasses.replace(get_arch(run.arch),
+                                        **dict(run.changes)))
+    params = api.init_params(torch.Generator(), torch.bfloat16, "meta")
+    tokens = torch.empty((run.batch, run.prompt), dtype=torch.int32,
+                         device="meta")
+    extra = (torch.empty((run.batch, run.extra, api.cfg.d_model),
+                         device="meta") if run.extra else None)
+    return api, params, tokens, extra
+
+
+def _lm_walks(run: LMRun) -> dict:
+    """The walk's counts of ``run``'s bf16 prefill and one decode step (the
+    calls phase 8 times), and gate (a) on both on the plain path."""
+    api, params, tokens, extra = _meta_lm(run)
+    tok = torch.empty((run.batch, 1), dtype=torch.int32, device="meta")
+    prefill, (cache, _) = _walk(api.prefill, params, tokens, run.max_len,
+                                extra)
+    step, _ = _walk(api.decode_step, params, cache, tok)
+    _, (plain_cache, _) = _walk(api.prefill, params, tokens, run.max_len,
+                                extra, use_kernel=False)
+    _plain_flops(f"{run.label} prefill", api.prefill, params, tokens,
+                 run.max_len, extra, use_kernel=False)
+    _plain_flops(f"{run.label} decode step", api.decode_step, params,
+                 plain_cache, tok, use_kernel=False)
+    return {"prefill": prefill, "decode step": step}
+
+
+def _train_walk(arch: str):
+    """The walk's counts of phase 8b's timed bf16 step, and gate (a) on the
+    same step on the plain path."""
+    api = get_model(get_arch(arch))
+    params = make_trainable(api.init_params(torch.Generator(),
+                                            torch.bfloat16, "meta"))
+    opt = adamw.init(dict(params.named_parameters()))
+    tokens = torch.empty((TRAIN_B, TRAIN_S), dtype=torch.int32,
+                         device="meta")
+    batch = {"tokens": tokens, "labels": tokens}
+    acc, _ = _walk(make_train_step(api, TRAIN_MICRO,
+                                   param_dtype=torch.bfloat16),
+                   params, opt, batch)
+    plain = make_train_step(dataclasses.replace(
+        api, loss=partial(api.loss, use_kernel=False)), TRAIN_MICRO,
+        param_dtype=torch.bfloat16)
+    _plain_flops(f"{arch} train step", plain, params, opt, batch)
+    return acc
+
+
+def roofline_phase(lm_ms: dict, runs: dict) -> None:
+    """Phase 11: each timed path's roofline terms on one H100 beside its
+    measured time (device-only for the LM calls, eager for the training
+    steps), with gates (a)-(c).  The memory term counts every eager op's
+    operands from device memory; it is printed, not gated."""
+    t0 = time.perf_counter()
+    _formula_gate()
+    paths = []
+    for run in LM_RUNS:
+        for call, acc in _lm_walks(run).items():
+            paths.append((f"{run.label} {call}", acc, lm_ms[run.label][call],
+                          "device-only"))
+    for arch, _ in TRAIN_RUNS:
+        paths.append((f"train {arch} step", _train_walk(arch),
+                      runs[arch]["step_ms"], "eager"))
+    below = []
+    for label, acc, ms, how in paths:
+        terms = RooflineTerms(acc.flops, acc.hbm_bytes,
+                              acc.collective_wire_bytes, 1)
+        typed = typed_compute_s(acc.flops_by_dtype)
+        phase("roofline", f"{label}: {acc.flops:.4g} flop "
+                          f"({', '.join(f'{k} {v:.3g}' for k, v in acc.flops_by_dtype.items())}), "
+                          f"{acc.hbm_bytes / 1e9:.4g} GB, {acc.n_ops} ops; "
+                          f"compute {terms.compute_s * 1e3:.4f} ms (fp32 "
+                          f"products at 67 TFLOP/s: {typed * 1e3:.4f}), memory "
+                          f"{terms.memory_s * 1e3:.4f} ms, {terms.dominant}; "
+                          f"measured {ms:.4f} ms ({how}) = "
+                          f"{ms / 1e3 / terms.compute_s:.2f} x compute, "
+                          f"{ms / 1e3 / terms.bound_time_s:.2f} x the bound; "
+                          f"kernels {acc.kernels}")
+        if ms / 1e3 < terms.compute_s:
+            below.append(label)
+    phase("roofline", f"{len(paths)} paths walked on meta in "
+                      f"{time.perf_counter() - t0:.1f} s (host clock); plain "
+                      "flops equal FlopCounterMode's on every path; "
+                      f"{CARD['smi']}")
+    if below:
+        raise AssertionError(f"roofline: measured below the compute term on "
+                             f"{below}: a count above the card's peak")
 
 
 def kernel_line(launches: int, worst: float) -> dict:
@@ -3304,20 +3567,27 @@ def main() -> int:
     catalog_phase()
 
     # Main paths 3-5: the LMs' serving paths at full width and depth.
-    by_path, by_dtype = {}, {}
+    by_path, by_dtype, lm_ms = {}, {}, {}
     for run in LM_RUNS:
-        by_path[run.label], dtypes = lm_path(run)
+        by_path[run.label], dtypes, lm_ms[run.label] = lm_path(run)
         for kernel, counts in dtypes.items():
             total = by_dtype.setdefault(kernel, dict.fromkeys(counts, 0))
             for dtype, n in counts.items():
                 total[dtype] += n
 
-    # Main path 5b: training at full width and depth (counts held inside).
-    for arch, counts in train_path().items():
+    # Main path 5b: training at full width and depth, then under the
+    # one-card mesh (counts held inside).
+    train_counts, train_runs = train_path()
+    mesh_counts = mesh_phase(train_runs)
+    for label, counts in ({f"train {arch}": c for arch, c in
+                           train_counts.items()} | mesh_counts).items():
         for kernel, dtypes in counts.items():
-            by_path[f"train {arch}"] = {kernel: sum(dtypes.values())}
+            by_path[label] = {kernel: sum(dtypes.values())}
             for dtype, n in dtypes.items():
                 by_dtype[kernel][dtype] += n
+
+    # Phase 11: the roofline of every timed path, walked on meta.
+    roofline_phase(lm_ms, train_runs)
 
     # Main path 6: the scenario engine over the simulator plane.
     reset_counts()

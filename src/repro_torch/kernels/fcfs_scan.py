@@ -263,6 +263,27 @@ def fcfs_stream_cuda(arrivals: torch.Tensor, batches: torch.Tensor,
     fcfs_scan_cuda.launches_by_flavour["stream"] += 1
 
 
+def result_buffers(arrivals: torch.Tensor, service: torch.Tensor,
+                   type_of_slot: torch.Tensor, *, n_active=None,
+                   want_lat: bool = False, want_start: bool = False,
+                   want_slot: bool = False) -> ScanResult:
+    """The kernel's outputs, empty, on the arrivals' device."""
+    n_w, nq = arrivals.shape
+    n_b, n_s = type_of_slot.shape
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=arrivals.device)
+
+    return ScanResult(
+        empty(n_w, n_b, dtype=torch.int32),
+        empty(n_w, n_b, nq) if want_lat else None,
+        empty(n_w, n_b, nq) if want_start else None,
+        empty(n_w, n_b, n_s),
+        empty(n_w, n_b, nq, dtype=torch.int32) if want_slot else None,
+        empty(n_w, n_b, tel_width(service.shape[1]), dtype=torch.int32)
+        if n_active is not None else None)
+
+
 def fcfs_scan_cuda(arrivals: torch.Tensor, service: torch.Tensor,
                    type_of_slot: torch.Tensor, priority: torch.Tensor,
                    free0: torch.Tensor, qos_t: float, *, policy=None,
@@ -277,18 +298,10 @@ def fcfs_scan_cuda(arrivals: torch.Tensor, service: torch.Tensor,
     n_b, n_s = type_of_slot.shape
     n_types = service.shape[1]
     dev = arrivals.device
-
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    counts = empty(n_w, n_b, dtype=torch.int32)
-    lat = empty(n_w, n_b, nq) if want_lat else None
-    start = empty(n_w, n_b, nq) if want_start else None
-    slot = empty(n_w, n_b, nq, dtype=torch.int32) if want_slot else None
-    tel = (empty(n_w, n_b, tel_width(n_types), dtype=torch.int32)
-           if n_active is not None else None)
-    free = empty(n_w, n_b, n_s)
-    result = ScanResult(counts, lat, start, free, slot, tel)
+    result = result_buffers(arrivals, service, type_of_slot,
+                            n_active=n_active, want_lat=want_lat,
+                            want_start=want_start, want_slot=want_slot)
+    counts, lat, start, free, slot, tel = result
     if n_w == 0 or n_b == 0:
         return result
     pref, aff, hedge = (None, None, None) if policy is None else policy

@@ -2,7 +2,10 @@
 
 Each function checks its inputs once, then takes the kernel's plain
 version for tensors on the CPU and launches the CUDA kernel for tensors on
-a card; there is no fallback from one to the other.  Counterpart of
+a card; there is no fallback from one to the other.  Meta tensors are
+taken only inside an op walk (``roofline.op_walk``), which counts the call
+by the kernel's formula and gets empty meta outputs of its shapes; outside
+one they raise.  Counterpart of
 ``repro/kernels/ops.py``.  Unlike the reference wrappers, these move no
 axes and pad nothing (not the head dim to 128 lanes, not S or T to
 blocks): the kernels read the public layouts through their strides.
@@ -17,14 +20,19 @@ from . import embedding_bag as _bag
 from . import fcfs_scan as _fcfs
 from . import flash_attention as _flash
 from . import ssd_scan as _ssd
+from ..roofline import op_walk
 from .ref import (decode_attention_ref, embedding_bag_ref, fcfs_scan_ref,
                   fcfs_stream_ref, flash_attention_ref, ssd_scan_ref)
 
 
-def _route(name: str, device: torch.device):
+def _route(name: str, device: torch.device) -> str:
+    """"cuda" (launch the kernel), "cpu" (its plain version) or, only inside
+    an op walk, "meta" (count it by its formula)."""
+    if device.type == "meta" and op_walk.active() is not None:
+        return "meta"
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cpu or cuda, not {device}")
-    return device.type == "cuda"
+    return device.type
 
 
 def embedding_bag(indices: torch.Tensor, table: torch.Tensor,
@@ -33,7 +41,14 @@ def embedding_bag(indices: torch.Tensor, table: torch.Tensor,
     table of a model in one launch: indices (n_bags, T, bag) int32; tables
     stacked (T, V, D) → (n_bags, T·D), table t pooled by indices[:, t]."""
     _bag.check_inputs(indices, table, weights)
-    if _route("embedding_bag", table.device):
+    route = _route("embedding_bag", table.device)
+    if route == "meta":
+        out = torch.empty((indices.shape[0], table.shape[0] * table.shape[-1]
+                           if table.dim() == 3 else table.shape[-1]),
+                          dtype=table.dtype, device=table.device)
+        op_walk.kernel_call("embedding_bag", (indices, table, weights), out)
+        return out
+    if route == "cuda":
         return _bag.embedding_bag_cuda(indices, table, weights)
     return embedding_bag_ref(indices, table, weights)
 
@@ -47,7 +62,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     defaults to D ** -0.5."""
     _flash.check_inputs(q, k, v, window=window)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    if _route("flash_attention", q.device):
+    route = _route("flash_attention", q.device)
+    if route == "meta":
+        out = torch.empty_like(q)
+        op_walk.kernel_call("flash_attention", (q, k, v), out, causal=causal,
+                            window=window)
+        return out
+    if route == "cuda":
         return _flash.flash_attention_cuda(q, k, v, causal=causal,
                                            window=window, scale=scale)
     return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -62,7 +83,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, 1, H, D).  ``scale`` defaults to D ** -0.5."""
     _decode.check_inputs(q, k, v, pos)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    if _route("decode_attention", q.device):
+    route = _route("decode_attention", q.device)
+    if route == "meta":
+        out = torch.empty_like(q)
+        op_walk.kernel_call("decode_attention", (q, k, v, pos), out)
+        return out
+    if route == "cuda":
         return _decode.decode_attention_cuda(q, k, v, pos, scale=scale)
     return decode_attention_ref(q, k, v, pos, scale=scale)
 
@@ -75,7 +101,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     final state (B, H, P, N) float32.  Any L; x, b and c may be strided
     views (last dim contiguous)."""
     _ssd.check_inputs(x, dt, a_log, b, c)
-    if _route("ssd_scan", x.device):
+    route = _route("ssd_scan", x.device)
+    if route == "meta":
+        bb, _, h, p = x.shape
+        out = (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+               torch.empty((bb, h, p, b.shape[-1]), dtype=torch.float32,
+                           device=x.device))
+        op_walk.kernel_call("ssd_scan", (x, dt, a_log, b, c), out)
+        return out
+    if route == "cuda":
         return _ssd.ssd_scan_cuda(x, dt, a_log, b, c)
     return ssd_scan_ref(x, dt, a_log, b, c)
 
@@ -100,7 +134,16 @@ def fcfs_scan(arrivals: torch.Tensor, service: torch.Tensor,
                        policy, n_active)
     kw = dict(policy=policy, n_active=n_active, want_lat=want_lat,
               want_start=want_start, want_slot=want_slot)
-    if _route("fcfs_scan", arrivals.device):
+    route = _route("fcfs_scan", arrivals.device)
+    if route == "meta":
+        out = _fcfs.result_buffers(arrivals, service, type_of_slot,
+                                   n_active=n_active, want_lat=want_lat,
+                                   want_start=want_start, want_slot=want_slot)
+        op_walk.kernel_call("fcfs_scan", (arrivals, service, type_of_slot,
+                                          priority, free0, policy, n_active),
+                            out)
+        return out
+    if route == "cuda":
         return _fcfs.fcfs_scan_cuda(arrivals, service, type_of_slot,
                                     priority, free0, qos_t, **kw)
     return _fcfs.ScanResult(*fcfs_scan_ref(
@@ -121,7 +164,13 @@ def fcfs_stream(arrivals: torch.Tensor, batches: torch.Tensor,
     ``qos_t`` is added (see ``kernels.fcfs_scan``)."""
     _fcfs.check_stream_inputs(arrivals, batches, lut, type_of_slot, priority,
                               free, count)
-    if _route("fcfs_stream", arrivals.device):
+    route = _route("fcfs_stream", arrivals.device)
+    if route == "meta":
+        op_walk.kernel_call("fcfs_stream", (arrivals, batches, lut,
+                                            type_of_slot, priority, free,
+                                            count), (free, count))
+        return
+    if route == "cuda":
         _fcfs.fcfs_stream_cuda(arrivals, batches, lut, type_of_slot,
                                priority, free, count, shift, qos_t)
         return

@@ -1,2 +1,4 @@
-"""Step builders of the serving path and the live serving driver
-(``launch.serve``); counterpart of ``repro/launch``."""
+"""Launch layer (counterpart of ``repro/launch``): meshes (``mesh``), the
+sharding policy (``sharding``), meta-device specs of every cell
+(``specs``), the step builders (``steps``), the training driver
+(``train``) and the live serving driver (``serve``)."""

@@ -2,9 +2,11 @@
 AdamW), prefill and greedy decode.
 
 Counterpart of ``repro/launch/steps.py`` (``make_train_step`` :19,
-``make_prefill_step`` :75, ``make_decode_step`` :82).  The reference's
-``grad_shardings`` waits for the mesh (ROADMAP A-15g): the port trains on
-one device.
+``make_prefill_step`` :75, ``make_decode_step`` :82).  ``grad_shardings``
+pins each float32 gradient to its parameter's sharding before it is added
+up, where the reference pins it; on one card every sharding is
+replicated, so the pin passes the gradient through, and a sharding that
+would split one raises (``launch.sharding``, ROADMAP A-11).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 
 from ..models.transformer import DecoderLM, ModelApi
 from ..optim import adamw
+from .sharding import with_sharding_constraint
 
 
 def load_params(params: DecoderLM, new: dict) -> None:
@@ -29,7 +32,7 @@ def load_params(params: DecoderLM, new: dict) -> None:
 
 
 def make_train_step(api: ModelApi, n_micro: int, lr: float = 3e-4,
-                    param_dtype=None):
+                    param_dtype=None, grad_shardings: dict | None = None):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"})``, the reference's step.
 
@@ -41,7 +44,10 @@ def make_train_step(api: ModelApi, n_micro: int, lr: float = 3e-4,
     gradients are bf16 before the cast, the reference's bf16 gradient
     path); the loss is the microbatches' mean and ``grad_norm`` the sqrt
     of the float32 sum of g·g over every leaf.  ``param_dtype`` casts the
-    new parameters (None: they stay the master's float32)."""
+    new parameters (None: they stay the master's float32).
+    ``grad_shardings`` (parameter name → ``sharding.NamedSharding``, e.g.
+    ``sharding.param_shardings``) pins each microbatch's float32 gradient
+    to its parameter's layout before it is added up."""
     def train_step(params: DecoderLM, opt_state: adamw.AdamWState,
                    batch: dict):
         tokens, labels = batch["tokens"], batch["labels"]
@@ -61,9 +67,13 @@ def make_train_step(api: ModelApi, n_micro: int, lr: float = 3e-4,
             loss = api.loss(params, tokens[part], labels[part],
                             None if extra is None else extra[part])
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            for a, g in zip(acc, grads):
-                if g is not None:
-                    a.add_(g.float())
+            for name, a, g in zip(named, acc, grads):
+                if g is None:
+                    continue
+                g32 = g.float()
+                if grad_shardings is not None:
+                    g32 = with_sharding_constraint(g32, grad_shardings[name])
+                a.add_(g32)
             losses.append(loss.detach())
         torch._foreach_div_(acc, n_micro)
         gnorm = torch.sqrt(torch.stack([torch.vdot(g.reshape(-1),

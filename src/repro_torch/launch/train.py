@@ -12,15 +12,21 @@ It runs on the card unless the caller passes ``device="cpu"``
 through the flash-attention kernel and every Mamba-2 block's through the
 SSD-scan kernel, each with the gradient of the reference's math as its
 backward (``kernels.autograd``).  By default the configuration is cut to
-``reduced()``; ``--full`` (``smoke=False``) trains it at full size.  The
-reference's ``mesh`` argument is left out: the device mesh is not ported
-yet (ROADMAP A-15g), and the port trains on one device.
+``reduced()``; ``--full`` (``smoke=False``) trains it at full size.
+``mesh`` (``launch.mesh``) trains under a device mesh: the mesh is
+activated for the model code, the parameters live on its first device and
+each gradient is pinned to its parameter's sharding
+(``sharding.param_shardings``); on the one-card mesh every sharding is
+replicated and the run is the same, bit for bit, as without a mesh.  As
+in the reference, the CLI has no mesh flag (its docstring names one,
+ROADMAP C-R35).
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from contextlib import nullcontext
 
 import torch
 
@@ -31,6 +37,7 @@ from ..models.transformer import (get_model, lm_tree, lm_untree,
                                   make_trainable)
 from ..optim import adamw
 from ..serving import checkpoint
+from . import sharding as shp
 from .steps import load_params, make_train_step
 
 
@@ -73,7 +80,7 @@ def _to_device(batch: dict, device: torch.device) -> dict:
 def train(arch: str, steps: int = 50, batch_size: int = 8, seq_len: int = 64,
           smoke: bool = True, n_micro: int = 1, lr: float = 3e-4,
           ckpt_dir: str | None = None, ckpt_every: int = 20,
-          resume: bool = False, param_dtype=torch.float32,
+          resume: bool = False, param_dtype=torch.float32, mesh=None,
           log_every: int = 10, seed: int = 0, device=None):
     """Train ``arch`` for ``steps`` steps from random weights (a
     ``torch.Generator`` on the device, seeded by ``seed``) on the
@@ -82,8 +89,14 @@ def train(arch: str, steps: int = 50, batch_size: int = 8, seq_len: int = 64,
     ``ckpt_dir``; ``resume`` restarts from its latest one, the token
     stream fast-forwarded past the batches already taken (the reference
     restarts the stream from its seed, ROADMAP C-R34), so a resumed run
-    repeats the uninterrupted run's steps."""
-    dev = resolve_device(device)
+    repeats the uninterrupted run's steps.  Under a ``mesh`` the run takes
+    the mesh's first device, so it takes no ``device``."""
+    if mesh is None:
+        dev = resolve_device(device)
+    elif device is not None:
+        raise ValueError("train: pass a device or a mesh, not both")
+    else:
+        dev = mesh.devices[0]
     cfg = get_arch(arch)
     if smoke:
         cfg = cfg.reduced()
@@ -103,7 +116,10 @@ def train(arch: str, steps: int = 50, batch_size: int = 8, seq_len: int = 64,
             step0 = got_step
             print(f"[train] resumed from step {step0}")
 
-    step_fn = make_train_step(api, n_micro=n_micro, lr=lr, param_dtype=cast)
+    step_fn = make_train_step(
+        api, n_micro=n_micro, lr=lr, param_dtype=cast,
+        grad_shardings=None if mesh is None else shp.param_shardings(
+            params, cfg, mesh))
     source = SyntheticTokens(cfg.vocab_size, seed=seed)
     for _ in range(step0):
         source.batch(batch_size, seq_len)
@@ -112,20 +128,21 @@ def train(arch: str, steps: int = 50, batch_size: int = 8, seq_len: int = 64,
     pending = []
     t0 = time.time()
     try:
-        for step in range(step0, step0 + steps):
-            batch = _to_device(pipe.next(), dev)
-            params, opt_state, metrics = step_fn(params, opt_state, batch)
-            losses.append(float(metrics["loss"]))
-            if (step + 1) % log_every == 0:
-                dt = time.time() - t0
-                print(f"[train] step {step + 1} loss {losses[-1]:.4f} "
-                      f"gnorm {float(metrics['grad_norm']):.3f} "
-                      f"({dt / log_every:.2f}s/step)")
-                t0 = time.time()
-            if ckpt_dir and (step + 1) % ckpt_every == 0:
-                pending.append(checkpoint.save(
-                    ckpt_dir, train_state(cfg, params, opt_state),
-                    step=step + 1, async_write=True))
+        with nullcontext() if mesh is None else shp.activate(mesh):
+            for step in range(step0, step0 + steps):
+                batch = _to_device(pipe.next(), dev)
+                params, opt_state, metrics = step_fn(params, opt_state, batch)
+                losses.append(float(metrics["loss"]))
+                if (step + 1) % log_every == 0:
+                    dt = time.time() - t0
+                    print(f"[train] step {step + 1} loss {losses[-1]:.4f} "
+                          f"gnorm {float(metrics['grad_norm']):.3f} "
+                          f"({dt / log_every:.2f}s/step)")
+                    t0 = time.time()
+                if ckpt_dir and (step + 1) % ckpt_every == 0:
+                    pending.append(checkpoint.save(
+                        ckpt_dir, train_state(cfg, params, opt_state),
+                        step=step + 1, async_write=True))
     finally:
         pipe.close()
         for writer in pending:

@@ -3,10 +3,12 @@ and GELU MLPs, top-k MoE.
 
 Counterpart of ``repro/models/layers.py``, with its names, weight layouts
 ((d_in, d_out) matrices) and order of roundings.  The reference's
-``constrain`` sharding hints are dropped: they are no-ops outside a device
-mesh, and the port runs on one device.  So is ``moe_layer_local``, the
+``constrain`` sharding hints are left out: ``launch.sharding.constrain``
+is ported, but on one card every hint resolves to replicated and returns
+its input, so the layers call none.  So is ``moe_layer_local``, the
 reference's ``shard_map`` form of the MoE layer, which on one device is
-``moe_layer`` (ROADMAP A-11 ports the sharded form).
+``moe_layer``.  Both come with the port's multi-device half, its last
+module slice (ROADMAP A-11).
 
 Full-sequence attention goes through ``kernels.ops.flash_attention`` (the
 CUDA kernel on a card, its plain version on the CPU) inside

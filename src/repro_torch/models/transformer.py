@@ -880,6 +880,18 @@ def _stack_name(cfg, name: str) -> str:
     return _STACKS.get(cfg.family, {}).get(name, name)
 
 
+def ref_path(cfg: ArchConfig, name: str) -> tuple:
+    """A port parameter's path in the reference's pytree: a layer's
+    parameter under its stack's name, without the layer's index
+    (``layers.3.attn.wq`` → ("layers", "attn", "wq"); ("mamba", ...) for
+    the hybrid family, ("dec_layers", ...) for the encoder-decoder), any
+    other name split at its dots."""
+    parts = name.split(".")
+    if parts[0] in ("layers", "enc_layers"):
+        return (_stack_name(cfg, parts[0]), *parts[2:])
+    return tuple(parts)
+
+
 def lm_tree(cfg: ArchConfig, named: Mapping[str, torch.Tensor]) -> dict:
     """Tensors by the port's parameter names (``named_parameters()``, or
     an optimizer state's dict of the same names) as the reference's
@@ -889,12 +901,11 @@ def lm_tree(cfg: ArchConfig, named: Mapping[str, torch.Tensor]) -> dict:
     tree: dict = {}
     stacks: dict[tuple, list] = {}
     for name, t in named.items():
-        parts = name.split(".")
-        if parts[0] in ("layers", "enc_layers"):
-            path = (_stack_name(cfg, parts[0]), *parts[2:])
-            stacks.setdefault(path, []).append((int(parts[1]), t))
+        path = ref_path(cfg, name)
+        if name.startswith(("layers.", "enc_layers.")):
+            stacks.setdefault(path, []).append((int(name.split(".")[1]), t))
         else:
-            _put(tree, tuple(parts), t)
+            _put(tree, path, t)
     for path, items in stacks.items():
         stacked = torch.stack([t for _, t in sorted(items,
                                                     key=lambda it: it[0])])

@@ -59,6 +59,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert {"repro_torch.optim.adamw", "repro_torch.data.pipeline",
             "repro_torch.serving.checkpoint", "repro_torch.kernels.autograd",
             "repro_torch.launch.train"} <= set(modules)
+    assert {"repro_torch.launch.mesh", "repro_torch.launch.sharding",
+            "repro_torch.launch.specs", "repro_torch.roofline",
+            "repro_torch.roofline.analysis", "repro_torch.roofline.op_walk",
+            "repro_torch.roofline.report"} <= set(modules)
     bad = [m for m in loaded if m == "jax" or m.startswith(("jax.", "jaxlib"))
            or m == "repro" or m.startswith("repro.")]
     assert bad == []
@@ -93,6 +97,7 @@ def _entry_points():
     encdec_lm = get_model(get_arch("whisper-tiny").reduced())
     from repro_torch.serving import H100_CELLS, search_cells
     from repro_torch.launch.train import train
+    from repro_torch.launch.mesh import make_local_mesh
     return {
         "ClusterEngine": lambda: ClusterEngine("mtwnd", DEFAULT_CELLS),
         "RibbonOptimizer": lambda: RibbonOptimizer(space),
@@ -113,6 +118,7 @@ def _entry_points():
         "encdec_init_cache": lambda: encdec_lm.init_cache(1, 8),
         "search_cells": lambda: search_cells(list(H100_CELLS.values())),
         "train": lambda: train("mamba2-130m", steps=1),
+        "make_local_mesh": lambda: make_local_mesh(),
         "PoolSimulator": lambda: PoolSimulator(*pool_args),
         "PoolEvaluator": lambda: PoolEvaluator(*pool_args),
         "make_paper_setup": lambda: make_paper_setup("mtwnd", n_queries=10),
@@ -144,7 +150,8 @@ def _entry_points():
                                   "ssm_init_cache", "hybrid_init_params",
                                   "hybrid_init_cache", "moe_init_params",
                                   "encdec_init_params", "encdec_init_cache",
-                                  "search_cells", "train", "PoolSimulator",
+                                  "search_cells", "train", "make_local_mesh",
+                                  "PoolSimulator",
                                   "PoolEvaluator", "make_paper_setup",
                                   "segment_from", "grid_from", "rescale",
                                   "StreamingSimulator",
@@ -158,6 +165,19 @@ def test_entry_point_without_device_raises_without_cuda(name):
         pytest.skip("this host has a CUDA card: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _entry_points()[name]()
+
+
+def test_roofline_report_runs_without_a_card():
+    """The report walks its cells on the meta device: it allocates nothing
+    and launches nothing, so it runs with no card and takes no device."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.roofline.report", "--arch",
+         "mamba2-130m", "--shape", "decode_32k"], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+        env=_env(PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stderr
+    assert "| mamba2-130m | decode_32k |" in out.stdout
+    assert "### Roofline table" in out.stdout
 
 
 def test_chip_smoke_fails_without_a_card():

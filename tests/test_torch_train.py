@@ -32,11 +32,19 @@ Tolerances:
   most two Adam runs can part) and 0.1 x lr on average (seen 0.05 x lr);
 * AdamW alone: within 1 float32 ulp (the same operations in the same
   order; ``1 - b ** t`` may round differently);
-* data: bit for bit.
+* data: bit for bit;
+* the mesh: ``train(mesh=make_local_mesh("cpu"))`` repeats ``train()``
+  bit for bit (losses, parameters, AdamW state); a step with
+  ``grad_shardings`` (the local mesh's ``param_shardings``) repeats the
+  step without them bit for bit, and the reference's step with its own
+  ``grad_shardings`` under its 1 x 1 mesh within the fp32 tolerances
+  above; a sharding that would split a gradient raises.
 """
 
+import copy
 import dataclasses
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +55,7 @@ torch = pytest.importorskip("torch")
 
 from repro.configs import ARCHS as REF_ARCHS  # noqa: E402
 from repro.data import pipeline as ref_pipeline  # noqa: E402
+from repro.launch import sharding as ref_sharding  # noqa: E402
 from repro.launch.steps import make_train_step as ref_train_step  # noqa: E402
 from repro.models.transformer import get_model as ref_get_model  # noqa: E402
 from repro.optim import adamw as ref_adamw  # noqa: E402
@@ -55,7 +64,9 @@ from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.kernels import autograd as kernel_autograd  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref, ssd_scan_ref  # noqa: E402
+from repro_torch.launch import sharding  # noqa: E402
 from repro_torch.launch import train as train_module  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models import layers, ssm  # noqa: E402
 from repro_torch.models.transformer import (adamw_from_numpy,  # noqa: E402
@@ -471,3 +482,93 @@ def test_train_driver_runs_the_reference_cli(capsys):
                        "--steps", "3", "--batch", "2", "--seq", "16"])
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert last.startswith("[train] first loss") and "→ last" in last
+
+
+# ---------------------------------------------------------------------------
+# the mesh: train(mesh=) and make_train_step(grad_shardings=)
+
+
+def _state_equal(a, b) -> bool:
+    (pa, oa, la), (pb, ob, lb) = a, b
+    sa, sb = pa.state_dict(), pb.state_dict()
+    return (la == lb and sa.keys() == sb.keys()
+            and all(torch.equal(sa[n], sb[n]) for n in sa)
+            and torch.equal(oa.step, ob.step)
+            and all(torch.equal(x[n], y[n])
+                    for x, y in zip(oa[1:], ob[1:]) for n in x))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "internvl2-1b"])
+def test_train_under_the_local_mesh_is_the_same_run(arch):
+    kw = dict(steps=3, batch_size=4, seq_len=SEQ, n_micro=2, log_every=3)
+    plain = train_module.train(arch, device="cpu", **kw)
+    meshed = train_module.train(arch, mesh=make_local_mesh("cpu"), **kw)
+    assert _state_equal(plain, meshed)
+    with pytest.raises(ValueError, match="not both"):
+        train_module.train(arch, device="cpu", mesh=make_local_mesh("cpu"),
+                           **kw)
+
+
+def test_grad_shardings_step_matches_reference():
+    """The port's step with the local mesh's ``param_shardings`` as
+    ``grad_shardings`` equals its step without them bit for bit, and the
+    reference's step with its own ``grad_shardings`` under its 1 x 1 mesh
+    within the fp32 tolerances of ``test_train_steps_match_reference``."""
+    pair = Pair("qwen2.5-3b")
+    lr, n_micro = 1e-3, 2
+    mesh = make_local_mesh("cpu")
+    shardings = sharding.param_shardings(pair.params, pair.cfg, mesh)
+    assert set(shardings) == set(dict(pair.params.named_parameters()))
+    assert not any(any(s.spec) for s in shardings.values())
+    ref_mesh = jax.make_mesh((1, 1), ("data", "model"),
+                             devices=jax.devices()[:1])
+    with ref_sharding.activate(ref_mesh):
+        ref_step = jax.jit(ref_train_step(
+            pair.ref, n_micro, lr=lr,
+            grad_shardings=ref_sharding.param_shardings(
+                pair.ref_params, pair.ref_cfg, ref_mesh)))
+        ref_params, ref_opt = pair.ref_params, ref_adamw.init(pair.ref_params)
+        runs = {}
+        for pinned in (False, True):
+            params = copy.deepcopy(pair.params)
+            opt = adamw.init(dict(params.named_parameters()))
+            step = make_train_step(pair.api, n_micro, lr=lr,
+                                   grad_shardings=shardings if pinned
+                                   else None)
+            source = pipeline.SyntheticTokens(pair.cfg.vocab_size, seed=5)
+            metrics = []
+            for _ in range(2):
+                chunk = source.batch(4, SEQ)
+                b = {"tokens": chunk[:, :-1], "labels": chunk[:, 1:]}
+                params, opt, m = step(params, opt, pair.torch_batch(b))
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+                if pinned:
+                    ref_params, ref_opt, ref_m = ref_step(
+                        ref_params, ref_opt, pair.jax_batch(b))
+                    np.testing.assert_allclose(metrics[-1][0],
+                                               float(ref_m["loss"]),
+                                               rtol=1e-5)
+                    np.testing.assert_allclose(metrics[-1][1],
+                                               float(ref_m["grad_norm"]),
+                                               rtol=5e-4)
+            runs[pinned] = (params, opt, metrics)
+    assert _state_equal(runs[False], runs[True])
+    ref_named = lm_untree(pair.cfg, jax.tree.map(np.asarray, ref_params))
+    gap = _gap({n: p.detach() for n, p in runs[True][0].named_parameters()},
+               ref_named)
+    assert gap.max() <= 0.05 * lr and gap.mean() <= 1e-5 * lr
+
+
+def test_grad_shardings_that_would_split_raise():
+    pair = Pair("qwen2.5-3b")
+    named = dict(pair.params.named_parameters())
+    split = {n: sharding.NamedSharding(make_local_mesh("cpu"), (None,) *
+                                       p.dim()) for n, p in named.items()}
+    split["lm_head"] = sharding.NamedSharding(
+        types.SimpleNamespace(axis_names=("data", "model"),
+                              shape={"data": 1, "model": 2}),
+        (None, "model"))
+    step = make_train_step(pair.api, 1, grad_shardings=split)
+    opt = adamw.init(named)
+    with pytest.raises(NotImplementedError, match="A-11"):
+        step(pair.params, opt, pair.torch_batch(pair.batch(0)))

@@ -175,6 +175,30 @@ print a line and raise on failure:
    ``PERF.md`` §6's shapes equals its closed form computed here, (c) no
    measured time below its path's compute term; the memory term is
    printed, not gated (an eager op's operands may be served from L2);
+12. the multi-device half on one card: (a) the simulator's grid lane
+   sharded over ``simulator.lane_devices`` forced to 4 x cuda:0 (and over
+   the real cards where there are two or more), eight shapes of mtwnd's
+   grid (W 3 and 4 workload-split, W 1 x B 63 lane-split with pad 1,
+   stacked tables, policy folds of P 2 and 3) bit for bit against the
+   unsharded dispatch on the card and the CPU's plain scan, phase 7b's
+   warm anchors through the forced lanes, one sharded dispatch timed
+   beside one on one lane; (b) 4 ranks (``launch.mesh.run_ranks``; on
+   one card all on cuda:0 over gloo, their collectives staged through
+   pinned host memory; with a card a rank, NCCL) on a (2, 2) ("data",
+   "model") mesh serve olmoe-1b-7b at full width, the parameters placed
+   by ``param_shardings``, the cache by ``cache_shardings`` and the
+   tokens by ``data_sharding``: in fp32 cut to 4 layers, prefill 4 x
+   2048 and 8 decode steps with ``moe_buffer_shard`` "none"
+   (expert-parallel) and "local", each within 1e-4 x max |logits| of the
+   one-rank run with the same greedy tokens (its expert picks replayed,
+   C-R31; for "local" the one-rank run takes each MoE layer per data
+   shard, as the local layer does, C-R37); then bf16 at full depth,
+   prefill and decode steps timed, peak memory a rank; (c) mamba2-130m
+   at full width and depth trained on the 4 ranks (B 4 x S 2048): one
+   fp32 ``train(mesh=)`` step against the one-card step and against a
+   float64 witness of it (loss within 1e-5; each leaf's gradient within
+   1e-4 x its max |g| plus twice the one-card step's own distance from
+   the witness, phase 8b's rule), then 3 bf16 steps timed;
 9. the scenario engine (``repro_torch.scenario``) over mtwnd's simulator
    plane, the engine's GP on the host: diurnal-day at n 2000 / window
    400, spot-churn and tier-outage (the tiered plane: ``serving/fault.py``
@@ -208,7 +232,12 @@ dispatches on the host), before each part of phase 8b and read after it
 (per microbatch one launch of the model's kernel a layer in the forward
 and one in remat's recompute, the fp32 step's in float32, the rest in
 bfloat16; none on the plain paths), before each run of phase 10 and read
-after it (as phase 8b's bf16 runs), and set to 0 again
+after it (as phase 8b's bf16 runs), just before phase 12(a) and read
+after it (one fcfs_scan launch per unsharded dispatch and one a shard of
+each sharded one, no other kernel), in each rank of phase 12(b) and (c)
+before each run and read after it (a rank's flash launch a layer a
+prefill, decode launch a layer a step, ``ssd_scan`` launch a layer in
+the forward and one in remat's recompute a step), and set to 0 again
 just before each LM's serving runs and read just after
 them (qwen2.5-3b: one flash-attention launch per layer per prefill and one
 decode-attention launch per layer per step; mamba2-130m: one SSD-scan
@@ -283,13 +312,15 @@ from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
 from repro_torch.launch import sharding as shp  # noqa: E402
 from repro_torch.launch.mesh import (make_local_mesh,  # noqa: E402
-                                     make_production_mesh)
+                                     make_process_mesh,
+                                     make_production_mesh, run_ranks)
 from repro_torch.launch.serve import recover, serve  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step, make_train_step)
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import layers as layers_module  # noqa: E402
 from repro_torch.models import ssm as ssm_module  # noqa: E402
+from repro_torch.models import transformer as transformer_module  # noqa: E402
 from repro_torch.models import paper_models as pm  # noqa: E402
 from repro_torch.models.paper_models import (MTWND_PRESETS,  # noqa: E402
                                              make_random_batch, mtwnd_apply,
@@ -314,6 +345,7 @@ from repro_torch.serving.pool import (PoolEvaluator,  # noqa: E402
                                       paper_workload)
 from repro_torch.serving.routing import (NAMED_POLICIES,  # noqa: E402
                                          RoutingPolicy, named_policy)
+from repro_torch.serving import simulator as sim_module  # noqa: E402
 from repro_torch.serving.simulator import (StreamingSimulator,  # noqa: E402
                                            _cold_free0, _expand_slots,
                                            _fold_policy, _qos_threshold_f32)
@@ -3464,6 +3496,613 @@ def fcfs_line(launches: int, lanes: int, by_path: dict,
                      "latencies written"}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the multi-device half on one card.
+#
+# (a) the simulator's sharded grid lanes: ``simulator.lane_devices`` forced
+# to SHARD_LANES x cuda:0 (on a machine with two or more cards, then also
+# the real cards); the reference's eight SHARD_CASES shapes at mtwnd's
+# size, (factors, pools, stacked tables, policies): W 3 (pad 1), W 1 with
+# B 63 (b-split, pad 1), stacked tables, policy folds of P 2 and 3.
+SHARD_LANES = 4
+SHARD_CASES = [((1.0, 1.2, 1.5), 3, False, 0), ((1.3,), 63, False, 0),
+               ((1.0, 1.2, 1.5), 3, True, 0), ((1.3,), 63, True, 0),
+               ((1.0, 1.1, 1.2, 1.5), 3, False, 2), ((1.3,), 21, False, 3),
+               ((1.0, 1.1, 1.2, 1.5), 3, True, 2), ((1.3,), 21, True, 3)]
+# phase 7b's warm anchors (policy: (pool, $/h))
+WARM_ANCHORS = {None: ((6, 0, 1), 3.305), "hedged": ((1, 5, 1), 2.375)}
+# (b), (c): MESH_RANKS ranks on a MESH_SHAPE ("data", "model") mesh: on one
+# card all on cuda:0 over gloo (its collectives staged through pinned host
+# memory, launch.host_collectives), with a card a rank over NCCL.
+# olmoe-1b-7b at full width: the fp32 gate at SHARD_GATE_LAYERS layers,
+# prefill SHARD_B x SHARD_S and SHARD_STEPS decode steps, held within
+# SHARD_TOL x max |logits| of the one-rank run with its expert picks
+# replayed (for the local MoE layer a one-rank run with each MoE layer
+# run per data shard: its capacity counts the shard's tokens, so it drops
+# other pairs than the global layer, C-R37); then bf16 at full depth,
+# timed.  (c): mamba2-130m at full width and depth, B TRAIN_B x S TRAIN_S:
+# one fp32 train() step against the one-card step and against a float64
+# witness of it (the same weights and batch, float64 throughout on the
+# plain path): losses within TRAIN_LOSS_RTOL; each leaf's AdamW first
+# moment (1 - b1)·g, against the one-card step's and against the
+# witness's, within TRAIN_GRAD_TOL x its max widened by phase 8b's rule,
+# twice the one-card step's own distance from the witness, measured here.
+# Then SHARD_TRAIN_STEPS bf16 steps, timed.
+MESH_RANKS, MESH_SHAPE = 4, (2, 2)
+SHARD_ARCH, SHARD_GATE_LAYERS = "olmoe-1b-7b", 4
+SHARD_B, SHARD_S, SHARD_STEPS = 4, 2048, 8
+SHARD_TOL = 1e-4
+SHARD_TRAIN_ARCH, SHARD_TRAIN_STEPS = "mamba2-130m", 3
+
+
+@contextmanager
+def forced_lanes(devices):
+    """Within: the grid lane's QoS counts shard over ``devices``."""
+    real = sim_module.lane_devices
+    sim_module.lane_devices = lambda device: list(devices)
+    try:
+        yield
+    finally:
+        sim_module.lane_devices = real
+
+
+def _shard_rates(ev, case, cfgs, prices):
+    factors, _, tables, n_pol = case
+    kw = {"workloads": list(factors)}
+    if tables:
+        kw["service_tables"] = np.stack([ev.sim._service_host] * len(factors))
+    if n_pol:
+        kw["policy"] = RoutingPolicy.stack(
+            [RoutingPolicy.fcfs(3), RoutingPolicy.hedged(3),
+             RoutingPolicy.cost_aware(prices)][:n_pol])
+    return ev.sim.qos(cfgs, **kw).rates
+
+
+def _warm_anchors(ev, space) -> dict:
+    """Phase 7b's warm anchors: converge on the base load (the GP on the
+    host), then the warm rescale under each policy of WARM_ANCHORS."""
+    out = {}
+    for name in WARM_ANCHORS:
+        opt = _converge(RibbonOptimizer(space, qos_target=0.99,
+                                        start=(5, 0, 0), device="cpu"), ev)
+        base = opt.trace.best_feasible().config
+        pol = None if name is None else named_policy(name, space.prices)
+        seg = ev.sim.segment_from(ev.sim.initial_state(), base, policy=pol)
+        st = seg.state_at(1000).rebased(float(ev.workload.arrivals[1000]))
+        event = rescale(opt, ev, budget=40, load_factors=[1.0, 1.5],
+                        warm_state=st, deployed=base, policy=pol)
+        out[name] = (event.new_best, event.new_cost, event.samples_used)
+    return out
+
+
+def _dispatch_ms(sim, cfgs, runs: int = 20) -> float:
+    """Median host ms of one grid dispatch (3 load levels), counts to the
+    host included."""
+    sim.qos(cfgs, workloads=[1.0, 1.2, 1.5])
+    spans = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        sim.qos(cfgs, workloads=[1.0, 1.2, 1.5])
+        spans.append(time.perf_counter() - t0)
+    return float(np.median(spans)) * 1e3
+
+
+def sharded_lanes_phase() -> int:
+    """Phase 12(a): the eight shapes' rates over SHARD_LANES forced lanes on
+    cuda:0 equal, bit for bit, the unsharded dispatch on the card and the
+    CPU's plain scan; phase 7b's warm anchors through the forced lanes;
+    fcfs_scan launches = one a dispatch + one a shard of each sharded
+    dispatch (counts set to 0 just before, read just after); one sharded
+    dispatch timed beside the unsharded one.  Returns the launches."""
+    card0 = [torch.device("cuda", 0)]
+    ev, space, _ = make_paper_setup("mtwnd", device="cuda")
+    cpu_ev = make_paper_setup("mtwnd", device="cpu")[0]
+    rng = np.random.default_rng(12)
+    cases = [(case, _configs(rng, (8, 10, 12), case[1]))
+             for case in SHARD_CASES]
+    want = [_shard_rates(cpu_ev, c, cfgs, space.prices) for c, cfgs in cases]
+    with forced_lanes(card0):
+        card = [_shard_rates(ev, c, cfgs, space.prices) for c, cfgs in cases]
+    reset_counts()
+    d0, s0 = ev.sim.n_dispatches, ev.sim.n_sharded
+    with forced_lanes(card0 * SHARD_LANES):
+        got = [_shard_rates(ev, c, cfgs, space.prices) for c, cfgs in cases]
+        t0 = time.perf_counter()
+        anchors = _warm_anchors(ev, space)
+        anchor_s = time.perf_counter() - t0
+    dispatches = ev.sim.n_dispatches - d0
+    sharded = ev.sim.n_sharded - s0
+    counts = {fn.__name__[:-5]: fn.launches for fn in COUNTED}
+    launches = counts.pop("fcfs_scan")
+    by_flavour = dict(fcfs_scan_cuda.launches_by_flavour)
+    for (case, _), g, c, w in zip(cases, got, card, want):
+        if not (np.array_equal(g, c) and np.array_equal(g, w)):
+            raise AssertionError(f"sharded lanes {case}: {g} vs unsharded "
+                                 f"card {c}, CPU {w}")
+    want_launches = dispatches + (SHARD_LANES - 1) * sharded
+    if sharded < len(SHARD_CASES) or launches != want_launches or any(
+            counts.values()):
+        raise AssertionError(f"sharded lanes: fcfs_scan launched {launches} "
+                             f"times for {dispatches} dispatches of which "
+                             f"{sharded} sharded; others {counts}")
+    for name, (pool, cost) in WARM_ANCHORS.items():
+        if anchors[name][:2] != (pool, cost):
+            raise AssertionError(f"sharded lanes: warm anchor {name} "
+                                 f"{anchors[name]}, expected {pool} ${cost}")
+    cfgs64 = _configs(np.random.default_rng(8), (8, 10, 12), 64)
+    with forced_lanes(card0):
+        one_ms = _dispatch_ms(ev.sim, cfgs64)
+    with forced_lanes(card0 * SHARD_LANES):
+        four_ms = _dispatch_ms(ev.sim, cfgs64)
+    phase("sharded", f"{len(SHARD_CASES)} grid shapes over {SHARD_LANES} "
+                     "lanes forced on cuda:0 (W 3 and 4 workload-split, "
+                     "W 1 x B 63 lane-split with pad 1, stacked tables, "
+                     "policy folds P 2 and 3): rates equal bit for bit to "
+                     "the unsharded dispatch on the card and to the CPU's "
+                     "plain scan")
+    phase("sharded", "warm anchors through the forced lanes: " + "; ".join(
+        f"policy {n}: {p} at ${c}/h in {k} samples"
+        for n, (p, c, k) in anchors.items()) + f" ({anchor_s:.2f} s)")
+    phase("launches", f"fcfs_scan: {launches} launches = {dispatches} "
+                      f"dispatches + {SHARD_LANES - 1} x {sharded} sharded "
+                      f"ones (one a shard), by flavour {by_flavour}; no "
+                      "other kernel")
+    phase("sharded", f"one 64-pool x 3-level grid dispatch (host clock, "
+                     f"counts to the host): {one_ms:.4f} ms on one lane, "
+                     f"{four_ms:.4f} ms over {SHARD_LANES} lanes on cuda:0 "
+                     f"(one after another on its stream); on {CARD['smi']}")
+    if torch.cuda.device_count() > 1:
+        devs = sim_module.lane_devices(torch.device("cuda"))
+        real = [_shard_rates(ev, c, cfgs, space.prices) for c, cfgs in cases]
+        if not all(np.array_equal(r, w) for r, w in zip(real, want)):
+            raise AssertionError("sharded lanes over the real cards differ")
+        phase("sharded", f"the same {len(SHARD_CASES)} shapes over the "
+                         f"{len(devs)} real cards: equal bit for bit")
+    else:
+        phase("sharded", "one card: the run over real cards waits for a "
+                         "machine with two or more")
+    return launches
+
+
+@contextmanager
+def per_shard_moe(shards: int):
+    """Within: each MoE layer runs as the global layer on each of
+    ``shards`` batch shards in turn (capacity from the shard's tokens),
+    the outputs concatenated and the aux losses averaged: on one device,
+    what ``moe_layer_local`` computes on a mesh of ``shards`` data
+    ranks."""
+    real = transformer_module.moe_layer
+
+    def layer(moe, x, cfg, capacity_factor=None, _global=False):
+        outs, auxs = zip(*(real(moe, part, cfg, capacity_factor,
+                                _global=True) for part in x.chunk(shards)))
+        return torch.cat(outs), torch.stack(auxs).mean()
+    transformer_module.moe_layer = layer
+    try:
+        yield
+    finally:
+        transformer_module.moe_layer = real
+
+
+def mesh_settings(device: str = "cuda") -> dict:
+    """Phase 12 (b) and (c)'s sizes and device, handed to every rank."""
+    return dict(device=device, arch=SHARD_ARCH, gate_layers=SHARD_GATE_LAYERS,
+                b=SHARD_B, s=SHARD_S, steps=SHARD_STEPS,
+                train_arch=SHARD_TRAIN_ARCH, train_b=TRAIN_B,
+                train_s=TRAIN_S, train_steps=SHARD_TRAIN_STEPS, smoke=False,
+                changes={})
+
+
+def _arch(job: dict, name: str, **changes):
+    cfg = get_arch(job[name])
+    if job["smoke"]:
+        cfg = cfg.reduced()
+    return dataclasses.replace(cfg, **job["changes"], **changes)
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak_gb(dev) -> float:
+    return (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else 0.0)
+
+
+def _rank_params(api, mesh, dtype, local_experts: bool):
+    """The model from seed 0 on this rank's card, placed by
+    ``param_shardings`` (the experts by ``layers.moe_local_specs`` for the
+    local MoE layer, the layout it computes in); the ranks draw it one
+    after another, so that one whole model at a time is on the card."""
+    import torch.distributed as dist
+    params = None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            dev = mesh.devices[turn]
+            gen = torch.Generator(device=dev).manual_seed(0)
+            params = api.init_params(gen, dtype, dev)
+            shardings = shp.param_shardings(params, api.cfg, mesh)
+            if local_experts:
+                specs = layers_module.moe_local_specs(api.cfg)
+                for name in shardings:
+                    if ".moe.experts." in name:
+                        shardings[name] = shp.NamedSharding(
+                            mesh, specs[name.rsplit(".", 1)[1]])
+            shp.place_params(params, shardings)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return params
+
+
+def _rank_counts() -> dict:
+    return {fn.__name__[:-5]: (fn.launches, dict(getattr(
+        fn, "launches_by_dtype", {}))) for fn in COUNTED[1:4]}
+
+
+def _full(x) -> torch.Tensor:
+    return (x.full_tensor() if shp.is_distributed(x) else x).detach().cpu()
+
+
+def _sharded_serve(mesh, job: dict, mode: str) -> dict:
+    """(b)'s fp32 gate in one MoE mode: prefill and teacher-forced decode
+    steps with the one-rank run's expert picks replayed; every logits."""
+    api = get_model(_arch(job, "arch", n_layers=job["gate_layers"],
+                          moe_buffer_shard=mode))
+    params = _rank_params(api, mesh, torch.float32, mode == "local")
+    dev = mesh.devices[torch.distributed.get_rank()]
+    picks = job["picks"][mode]
+    if mode == "local":
+        # the one-rank run routed each data shard in turn: this rank's
+        # shard's routings
+        shard = mesh.device_mesh.get_local_rank("data")
+        picks = picks[shard::MESH_SHAPE[0]]
+    tape = RoutingTape()
+    tape.picks.extend(p.to(dev) for p in picks)
+    reset_counts()
+    with shp.activate(mesh), torch.no_grad(), tape.installed(), \
+            tape.recording(False):
+        tokens = shp.place(job["tokens"].to(dev), shp.data_sharding(
+            job["tokens"].shape, mesh))
+        cache, last = make_prefill_step(api, job["s"] + job["steps"])(
+            params, {"tokens": tokens})
+        logits = [_full(last)]
+        for fed in job["fed"][mode]:
+            out, cache = api.decode_step(params, cache, shp.place(
+                fed.to(dev), shp.data_sharding(fed.shape, mesh)))
+            logits.append(_full(out))
+    _sync(dev)
+    counts = _rank_counts()
+    return {"logits": logits, "flips": tape.flips, "routed": tape.routed,
+            "counts": counts}
+
+
+def _sharded_bf16(mesh, job: dict) -> dict:
+    """(b)'s bf16 run at full depth: two serving runs (prefill, then greedy
+    decode steps), the second timed on the host clock."""
+    import torch.distributed as dist
+    api = get_model(_arch(job, "arch"))
+    params = _rank_params(api, mesh, torch.bfloat16, False)
+    dev = mesh.devices[dist.get_rank()]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, api.cfg.vocab_size, (job["b"], job["s"]),
+                           generator=gen, device=dev, dtype=torch.int32)
+    prefill = make_prefill_step(api, job["s"] + job["steps"])
+    serve_step = make_decode_step(api)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    with shp.activate(mesh), torch.no_grad():
+        tokens = shp.place(tokens, shp.data_sharding(tokens.shape, mesh))
+        for _ in range(2):
+            _sync(dev)
+            dist.barrier()
+            t0 = time.perf_counter()
+            cache, last = prefill(params, {"tokens": tokens})
+            tok = _greedy(shp.constrain(last, "batch", None, None))
+            _sync(dev)
+            t1 = time.perf_counter()
+            for _ in range(job["steps"]):
+                tok, cache = serve_step(params, cache, tok)
+            _sync(dev)
+            t2 = time.perf_counter()
+    return {"prefill_ms": (t1 - t0) * 1e3,
+            "step_ms": (t2 - t1) * 1e3 / job["steps"],
+            "counts": _rank_counts(), "peak_gb": _peak_gb(dev),
+            "tokens": _full(tok)}
+
+
+def _fp32_train_step(job: dict, **where) -> tuple:
+    """One fp32 train() step of (c) (``where``: the mesh, or the device):
+    the loss and the AdamW first moments, full."""
+    _, opt, losses = train(job["train_arch"], steps=1,
+                           batch_size=job["train_b"], seq_len=job["train_s"],
+                           smoke=job["smoke"], log_every=100, **where)
+    return losses[0], {n: _full(t) for n, t in opt.m.items()}
+
+
+@contextmanager
+def float64_throughout():
+    """Within: ``Tensor.float()`` leaves a float64 tensor as it is, and the
+    plain path's chunked scan is ``_chunked_fp64``, so that a float64
+    model's plain path runs in float64 throughout (the models take norms,
+    softplus, the scan's sums and the loss in float32 by ``.float()``)."""
+    real = torch.Tensor.float
+
+    def keep64(self, *args, **kwargs):
+        return self if self.dtype == torch.float64 else real(self, *args,
+                                                                **kwargs)
+    torch.Tensor.float = keep64
+    try:
+        with plain_scan_in_fp64(_chunked_fp64):
+            yield
+    finally:
+        torch.Tensor.float = real
+
+
+def _fp64_train_witness(job: dict) -> tuple:
+    """(c)'s float64 witness: the one-card step's gradient, the same
+    weights and batch as train()'s first step, in float64 throughout on
+    the plain path (the kernels take no float64); the loss and (1 - b1)·g,
+    the first moments an AdamW step would hold."""
+    dev = torch.device(job["device"])
+    api = get_model(_arch(job, "train_arch"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = make_trainable(api.init_params(gen, torch.float32, dev)).to(
+        torch.float64)
+    chunk = torch.from_numpy(SyntheticTokens(api.cfg.vocab_size, seed=0)
+                             .batch(job["train_b"], job["train_s"])).to(dev)
+    named = dict(params.named_parameters())
+    with float64_throughout():
+        loss = api.loss(params, chunk[:, :-1], chunk[:, 1:], use_kernel=False)
+        grads = torch.autograd.grad(loss, list(named.values()))
+    return float(loss.detach()), {n: ((1 - 0.9) * g).cpu()
+                         for n, g in zip(named, grads)}
+
+
+def _sharded_train(mesh, job: dict) -> dict:
+    """(c): one fp32 train() step under the mesh (its AdamW first moments
+    gathered on rank 0), then the bf16 steps timed."""
+    import torch.distributed as dist
+    reset_counts()
+    loss, m = _fp32_train_step(job, mesh=mesh)
+    fp32_counts = _rank_counts()
+    api = get_model(_arch(job, "train_arch"))
+    params = make_trainable(_rank_params(api, mesh, torch.bfloat16, False))
+    opt = adamw.init(dict(params.named_parameters()))
+    step = make_train_step(api, 1, param_dtype=torch.bfloat16)
+    dev = mesh.devices[dist.get_rank()]
+    chunk = torch.from_numpy(SyntheticTokens(api.cfg.vocab_size, seed=0)
+                             .batch(job["train_b"], job["train_s"])).to(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    ms, bf16_losses = [], []
+    with shp.activate(mesh):
+        batch = {k: shp.place(v, shp.data_sharding(v.shape, mesh))
+                 for k, v in (("tokens", chunk[:, :-1]),
+                              ("labels", chunk[:, 1:]))}
+        for _ in range(job["train_steps"]):
+            _sync(dev)
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            bf16_losses.append(float(_full(metrics["loss"])))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return {"loss": loss, "m": m if dist.get_rank() == 0 else None,
+            "fp32_counts": fp32_counts, "bf16_counts": _rank_counts(),
+            "bf16_ms": ms, "bf16_losses": bf16_losses,
+            "peak_gb": _peak_gb(dev)}
+
+
+def mesh_ranks(rank: int, world: int, job: dict) -> dict:
+    """Phase 12 (b) and (c) on one rank of the spawned group."""
+    from repro_torch.launch import host_collectives
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_process_mesh(MESH_SHAPE, ("data", "model"),
+                             device=job["device"])
+    out = {"backend": torch.distributed.get_backend(),
+           "device": str(mesh.devices[rank])}
+    t0 = time.perf_counter()
+    for mode in ("none", "local"):
+        out[mode] = _sharded_serve(mesh, job, mode)
+    out["bf16"] = _sharded_bf16(mesh, job)
+    out["serve_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["train"] = _sharded_train(mesh, job)
+    out["train_s"] = time.perf_counter() - t0
+    out["staged"] = dict(host_collectives.STAGED)
+    out["staged_gb"] = sum(host_collectives.STAGED_BYTES.values()) / 1e9
+    return out
+
+
+def _one_rank_serve(job: dict, mode: str) -> dict:
+    """The one-rank fp32 run of (b)'s gate in one MoE mode: the model cut
+    to its gate depth, seed 0, prefill and greedy decode steps on the
+    kernel path, its expert picks recorded.  "local" runs each MoE layer
+    per data shard (``per_shard_moe``), the local layer's semantics."""
+    dev = torch.device(job["device"])
+    api = get_model(_arch(job, "arch", n_layers=job["gate_layers"]))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = api.init_params(gen, torch.float32, dev)
+    tokens = torch.randint(0, api.cfg.vocab_size, (job["b"], job["s"]),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(2), device=dev, dtype=torch.int32)
+    tape = RoutingTape()
+    with tape.installed(), tape.recording(True), torch.no_grad(), (
+            per_shard_moe(MESH_SHAPE[0]) if mode == "local"
+            else nullcontext()):
+        cache, last = make_prefill_step(api, job["s"] + job["steps"])(
+            params, {"tokens": tokens})
+        logits, fed = [last.cpu()], []
+        for _ in range(job["steps"]):
+            fed.append(_greedy(logits[-1]).cpu())
+            out, cache = api.decode_step(params, cache, fed[-1].to(dev))
+            logits.append(out.cpu())
+    return {"tokens": tokens.cpu(), "fed": fed, "logits": logits,
+            "picks": [p.cpu() for p in tape.picks]}
+
+
+def _one_card_train(job: dict) -> dict:
+    """(c)'s one-card fp32 step, train() at the same arguments with no
+    mesh, and its float64 witness."""
+    out = {}
+    out["loss"], out["m"] = _fp32_train_step(job, device=job["device"])
+    out["loss64"], out["m64"] = _fp64_train_witness(job)
+    return out
+
+
+def mesh_serving_phase(job: dict | None = None) -> dict:
+    """Phase 12 (b) and (c): the one-rank runs here, then one spawn of
+    MESH_RANKS ranks (``run_ranks``) for the sharded ones; every gate on
+    rank 0's gathered results and each rank's launches.  Returns the
+    launches by path for the kernels line.  ``job`` (``mesh_settings``)
+    sets the sizes and the device."""
+    job = mesh_settings() if job is None else job
+    t0 = time.perf_counter()
+    one = {mode: _one_rank_serve(job, mode) for mode in ("none", "local")}
+    one_train = _one_card_train(job)
+    if job["device"] == "cuda":
+        torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_ranks, MESH_RANKS, job | {
+        "tokens": one["none"]["tokens"],
+        "fed": {m: one[m]["fed"] for m in one},
+        "picks": {m: one[m]["picks"] for m in one}},
+        device=job["device"], timeout=900)
+    spawn_s = time.perf_counter() - t0
+    head = ranks[0]
+    layers_ = job["gate_layers"]
+    full_layers = _arch(job, "arch").n_layers
+    steps = job["steps"]
+    on_card = job["device"] == "cuda"     # a CPU rehearsal launches nothing
+    against = {"none": "", "local": " with each MoE layer per data shard"}
+    for mode in ("none", "local"):
+        got = head[mode]
+        worst = max(_lm_gate(f"sharded {mode} {'prefill' if i == 0 else i}",
+                             g, w, SHARD_TOL)
+                    for i, (g, w) in enumerate(zip(got["logits"],
+                                                   one[mode]["logits"])))
+        for r in ranks:
+            c = r[mode]["counts"]
+            if on_card and (c["flash_attention"][0] != layers_ or c[
+                    "decode_attention"][0] != layers_ * steps or c[
+                    "ssd_scan"][0]):
+                raise AssertionError(f"sharded {mode}: launches {c}")
+        phase("mesh", f"{job['arch']} {layers_} layers fp32 on "
+                      f"{MESH_RANKS} ranks {MESH_SHAPE} ({head['backend']}, "
+                      f"{head['device']}), moe_buffer_shard {mode!r}: "
+                      f"prefill {job['b']} x {job['s']} and {steps} "
+                      f"decode steps within {worst:.3g} x max |logits| of "
+                      f"the one-rank run{against[mode]} "
+                      f"(gate {SHARD_TOL}), the same greedy "
+                      f"tokens; expert picks replayed, {got['flips']} of "
+                      f"{got['routed']} routings flip; per rank flash "
+                      f"{layers_} + decode {layers_ * steps} launches")
+    bf16 = [r["bf16"] for r in ranks]
+    for b in bf16:
+        c = b["counts"]
+        if on_card and (c["flash_attention"][0] != 2 * full_layers or c[
+                "decode_attention"][0] != 2 * full_layers * steps):
+            raise AssertionError(f"sharded bf16: launches {c}")
+        if not torch.equal(b["tokens"], bf16[0]["tokens"]):
+            raise AssertionError("sharded bf16: ranks hold other tokens")
+    phase("mesh", f"{job['arch']} {full_layers} layers bf16 on {MESH_RANKS} "
+                  f"ranks: prefill {job['b']} x {job['s']} "
+                  f"{bf16[0]['prefill_ms']:.1f} ms, decode "
+                  f"{bf16[0]['step_ms']:.1f} ms a step (second run, host "
+                  f"clock, rank 0); per rank flash {2 * full_layers} and "
+                  f"decode {2 * full_layers * steps} launches; peak "
+                  f"memory a rank " + ", ".join(f"{b['peak_gb']:.2f}"
+                                                for b in bf16) + " GB")
+    tr = head["train"]
+
+    def rel_loss(a: float, b: float) -> float:
+        return abs(a - b) / abs(b)
+
+    def grad_gap(got: dict, want: dict) -> tuple:
+        """max over the leaves of max |got - want| / max |want|, and its
+        leaf (the first moments of float32 steps against a float64 witness
+        compared in float64)."""
+        gap = {n: (got[n].double() - m.double()).abs().max().item()
+               / max(m.abs().max().item(), 1e-30) for n, m in want.items()}
+        worst = max(gap, key=gap.get)
+        return gap[worst], worst
+    rel = rel_loss(tr["loss"], one_train["loss"])
+    rel64 = rel_loss(one_train["loss"], one_train["loss64"])
+    gaps = {"sharded vs one card": grad_gap(tr["m"], one_train["m"]),
+            "one card vs float64": grad_gap(one_train["m"], one_train["m64"]),
+            "sharded vs float64": grad_gap(tr["m"], one_train["m64"])}
+    # 8b's rule, its noise measured here: the one-card fp32 step's own
+    # distance from the float64 witness; the sharded step may lie that far
+    # on the other side
+    noise = gaps["one card vs float64"][0]
+    grad_gate = TRAIN_GRAD_TOL + 2 * noise
+    if not (rel <= TRAIN_LOSS_RTOL and rel64 <= TRAIN_LOSS_RTOL
+            and gaps["sharded vs one card"][0] <= grad_gate
+            and gaps["sharded vs float64"][0] <= grad_gate):
+        raise AssertionError(f"sharded train: loss rel {rel} (one card vs "
+                             f"float64 {rel64}), gradients {gaps} x max |g| "
+                             f"(gate {grad_gate})")
+    n_ssd = _arch(job, "train_arch").n_layers * (
+        2 if _arch(job, "train_arch").remat else 1)
+    for r in ranks:
+        t = r["train"]
+        if on_card and (t["fp32_counts"]["ssd_scan"][0] != n_ssd or t[
+                "bf16_counts"]["ssd_scan"][0] != n_ssd * job["train_steps"]):
+            raise AssertionError(f"sharded train: launches "
+                                 f"{t['fp32_counts']} {t['bf16_counts']}")
+    phase("mesh", f"{job['train_arch']} train() on {MESH_RANKS} ranks, B "
+                  f"{job['train_b']} x S {job['train_s']}: fp32 step loss "
+                  f"{tr['loss']:.6f} within {rel:.3g} of the one-card "
+                  f"step's (the one-card step within {rel64:.3g} of its "
+                  f"float64 witness's); gradients, worst leaf of max |a - "
+                  f"b| / max |b|: " + "; ".join(
+                      f"{k} {v:.3g} ({leaf})"
+                      for k, (v, leaf) in gaps.items())
+                  + f" (gate {TRAIN_GRAD_TOL} + 2 x {noise:.3g}, phase 8b's "
+                  f"rule); {job['train_steps']} bf16 steps "
+                  + ", ".join(f"{x:.1f}" for x in tr["bf16_ms"])
+                  + f" ms (host clock), losses "
+                  + " ".join(f"{x:.4f}" for x in tr["bf16_losses"])
+                  + f"; ssd_scan {n_ssd} launches a step per rank; peak "
+                  f"memory a rank {tr['peak_gb']:.2f} GB")
+    phase("mesh", f"one-rank runs {one_s:.1f} s, the spawn {spawn_s:.1f} s "
+                  f"(serving {head['serve_s']:.1f} s, training "
+                  f"{head['train_s']:.1f} s); collectives staged through "
+                  f"host memory on rank 0: {head['staged']} "
+                  f"({head['staged_gb']:.2f} GB copied); on {CARD['smi']}")
+
+    def total(kernel, part):
+        return sum(r[part]["counts"][kernel][0] for r in ranks)
+
+    def by_dtype(kernel, parts):
+        out = {}
+        for r in ranks:
+            for part in parts:
+                for dt, n in r[part]["counts"][kernel][1].items():
+                    out[dt] = out.get(dt, 0) + n
+        return out
+    return {
+        "by_path": {
+            f"sharded {job['arch']} ({MESH_RANKS} ranks)": {
+                k: sum(total(k, p) for p in ("none", "local", "bf16"))
+                for k in ("flash_attention", "decode_attention")},
+            f"sharded train {job['train_arch']} ({MESH_RANKS} ranks)": {
+                "ssd_scan": sum(r["train"]["fp32_counts"]["ssd_scan"][0]
+                                + r["train"]["bf16_counts"]["ssd_scan"][0]
+                                for r in ranks)}},
+        "by_dtype": {
+            k: by_dtype(k, ("none", "local", "bf16"))
+            for k in ("flash_attention", "decode_attention")} | {
+            "ssd_scan": {dt: sum(r["train"][part]["ssd_scan"][1].get(dt, 0)
+                                 for r in ranks
+                                 for part in ("fp32_counts", "bf16_counts"))
+                         for dt in ("float32", "bfloat16")}}}
+
+
 COUNTED = (embedding_bag_cuda, flash_attention_cuda, decode_attention_cuda,
            ssd_scan_cuda, fcfs_scan_cuda)
 
@@ -3608,6 +4247,16 @@ def main() -> int:
     # Main path 6b: an episode through the live plane (counts read inside).
     live_plane_phase()
 
+    # Phase 12: the multi-device half on one card: the simulator's sharded
+    # grid lanes (counts read inside), then serving and training on four
+    # ranks (each rank's counts set to 0 before each run, read after).
+    sh_launches = sharded_lanes_phase()
+    mesh12 = mesh_serving_phase()
+    by_path.update(mesh12["by_path"])
+    for kernel, dtypes in mesh12["by_dtype"].items():
+        for dtype, n in dtypes.items():
+            by_dtype[kernel][dtype] = by_dtype[kernel].get(dtype, 0) + n
+
     def launches(kernel: str) -> tuple[int, dict]:
         counts = {arch: c[kernel] for arch, c in by_path.items()
                   if c.get(kernel)}
@@ -3623,9 +4272,10 @@ def main() -> int:
              ssd_line(*launches("ssd_scan"), by_dtype["ssd_scan"],
                       ssd_worst),
              fcfs_line(scan_launches + lc_launches + st_launches
-                       + sc_launches, fcfs_lanes,
+                       + sc_launches + sh_launches, fcfs_lanes,
                        {"search": scan_launches, "load_change": lc_launches,
-                        "stream": st_launches, "scenario": sc_launches},
+                        "stream": st_launches, "scenario": sc_launches,
+                        "sharded": sh_launches},
                        by_flavour, sc_flavour)]
     for line in lines:
         phase("kernel", f"{line['name']} at its path's shape, device-only "

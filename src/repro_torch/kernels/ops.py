@@ -13,6 +13,8 @@ blocks): the kernels read the public layouts through their strides.
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from . import decode_attention as _decode
@@ -23,6 +25,18 @@ from . import ssd_scan as _ssd
 from ..roofline import op_walk
 from .ref import (decode_attention_ref, embedding_bag_ref, fcfs_scan_ref,
                   fcfs_stream_ref, flash_attention_ref, ssd_scan_ref)
+
+
+def _local_only(name: str, *tensors) -> None:
+    """Raise on a DTensor: a kernel launches on its inputs' raw pointers,
+    so it takes each rank's local shard (``sharding.local_call``), never
+    a distributed tensor, and never runs its plain version for one (no
+    DTensor exists until ``torch.distributed.tensor`` is imported)."""
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    if dtensor is not None and any(isinstance(t, dtensor.DTensor)
+                                   for t in tensors):
+        raise TypeError(f"{name} takes local tensors, got a DTensor: call it "
+                        "through launch.sharding.local_call")
 
 
 def _route(name: str, device: torch.device) -> str:
@@ -40,6 +54,7 @@ def embedding_bag(indices: torch.Tensor, table: torch.Tensor,
     """indices (n_bags, bag) int32; table (V, D) → (n_bags, D).  Or every
     table of a model in one launch: indices (n_bags, T, bag) int32; tables
     stacked (T, V, D) → (n_bags, T·D), table t pooled by indices[:, t]."""
+    _local_only("embedding_bag", indices, table, weights)
     _bag.check_inputs(indices, table, weights)
     route = _route("embedding_bag", table.device)
     if route == "meta":
@@ -60,6 +75,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     h reads KV head h // (H // KH).  Masks come from indices (query i, key
     j), causal and/or a sliding window of ``window`` keys; ``scale``
     defaults to D ** -0.5."""
+    _local_only("flash_attention", q, k, v)
     _flash.check_inputs(q, k, v, window=window)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     route = _route("flash_attention", q.device)
@@ -81,6 +97,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, 1, H, D); k, v (B, T, KH, D), a cache layer; pos (T,) int32,
     the ring's position table (slot j counts iff pos[j] >= 0) →
     (B, 1, H, D).  ``scale`` defaults to D ** -0.5."""
+    _local_only("decode_attention", q, k, v, pos)
     _decode.check_inputs(q, k, v, pos)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     route = _route("decode_attention", q.device)
@@ -100,6 +117,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     h reading group h // (H // G) → y (B, L, H, P) in x's type and the
     final state (B, H, P, N) float32.  Any L; x, b and c may be strided
     views (last dim contiguous)."""
+    _local_only("ssd_scan", x, dt, a_log, b, c)
     _ssd.check_inputs(x, dt, a_log, b, c)
     route = _route("ssd_scan", x.device)
     if route == "meta":
@@ -130,6 +148,8 @@ def fcfs_scan(arrivals: torch.Tensor, service: torch.Tensor,
     affinity (L,), hedge (L,)) f32 routes the dispatch; ``n_active`` (L,)
     i32 asks for the telemetry counters, ``want_slot`` for the winning slot
     of every query (see ``kernels.fcfs_scan``)."""
+    _local_only("fcfs_scan", arrivals, service, type_of_slot, priority,
+                free0, n_active, *(policy or ()))
     _fcfs.check_inputs(arrivals, service, type_of_slot, priority, free0,
                        policy, n_active)
     kw = dict(policy=policy, n_active=n_active, want_lat=want_lat,

@@ -3,10 +3,14 @@ AdamW), prefill and greedy decode.
 
 Counterpart of ``repro/launch/steps.py`` (``make_train_step`` :19,
 ``make_prefill_step`` :75, ``make_decode_step`` :82).  ``grad_shardings``
-pins each float32 gradient to its parameter's sharding before it is added
-up, where the reference pins it; on one card every sharding is
-replicated, so the pin passes the gradient through, and a sharding that
-would split one raises (``launch.sharding``, ROADMAP A-11).
+places each float32 gradient by its parameter's sharding before it is
+added up, where the reference pins it: on the one-card mesh every
+sharding is replicated and the gradient passes through itself; under a
+mesh over a process group it is redistributed (``launch.sharding``).
+The steps run on a model placed by ``sharding.place_params`` under an
+activated mesh as they run on one card: the parameters, the cache and
+the tokens are DTensors there, and the accumulators and the optimizer's
+moments are placed as the parameters are.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import torch
 
 from ..models.transformer import DecoderLM, ModelApi
 from ..optim import adamw
-from .sharding import with_sharding_constraint
+from .sharding import constrain, sum_of_squares, with_sharding_constraint
 
 
 def load_params(params: DecoderLM, new: dict) -> None:
@@ -46,8 +50,8 @@ def make_train_step(api: ModelApi, n_micro: int, lr: float = 3e-4,
     of the float32 sum of g·g over every leaf.  ``param_dtype`` casts the
     new parameters (None: they stay the master's float32).
     ``grad_shardings`` (parameter name → ``sharding.NamedSharding``, e.g.
-    ``sharding.param_shardings``) pins each microbatch's float32 gradient
-    to its parameter's layout before it is added up."""
+    ``sharding.param_shardings``) places each microbatch's float32
+    gradient by its parameter's sharding before it is added up."""
     def train_step(params: DecoderLM, opt_state: adamw.AdamWState,
                    batch: dict):
         tokens, labels = batch["tokens"], batch["labels"]
@@ -59,13 +63,16 @@ def make_train_step(api: ModelApi, n_micro: int, lr: float = 3e-4,
         mb = b // n_micro
         named = dict(params.named_parameters())
         leaves = list(named.values())
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for p in leaves]
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         losses = []
         for i in range(n_micro):
             part = slice(i * mb, (i + 1) * mb)
-            loss = api.loss(params, tokens[part], labels[part],
-                            None if extra is None else extra[part])
+
+            def micro(x):
+                # the whole batch as it is (a placed batch is not resliced)
+                return x if x is None or mb == b else x[part]
+            loss = api.loss(params, micro(tokens), micro(labels),
+                            micro(extra))
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             for name, a, g in zip(named, acc, grads):
                 if g is None:
@@ -76,8 +83,7 @@ def make_train_step(api: ModelApi, n_micro: int, lr: float = 3e-4,
                 a.add_(g32)
             losses.append(loss.detach())
         torch._foreach_div_(acc, n_micro)
-        gnorm = torch.sqrt(torch.stack([torch.vdot(g.reshape(-1),
-                                                   g.reshape(-1))
+        gnorm = torch.sqrt(torch.stack([sum_of_squares(g)
                                         for g in acc]).sum())
         new_params, opt_state = adamw.update(dict(zip(named, acc)), opt_state,
                                              lr=lr, param_dtype=param_dtype)
@@ -101,6 +107,8 @@ def make_decode_step(api: ModelApi):
         returns the greedy next tokens (B, 1) int32 and the cache (updated
         in place)."""
         logits, cache = api.decode_step(params, cache, tokens)
+        # under a mesh the vocabulary is gathered before the argmax
+        logits = constrain(logits, "batch", None, None)
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok[:, None], cache
     return serve_step

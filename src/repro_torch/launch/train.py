@@ -13,13 +13,18 @@ through the flash-attention kernel and every Mamba-2 block's through the
 SSD-scan kernel, each with the gradient of the reference's math as its
 backward (``kernels.autograd``).  By default the configuration is cut to
 ``reduced()``; ``--full`` (``smoke=False``) trains it at full size.
-``mesh`` (``launch.mesh``) trains under a device mesh: the mesh is
-activated for the model code, the parameters live on its first device and
-each gradient is pinned to its parameter's sharding
-(``sharding.param_shardings``); on the one-card mesh every sharding is
-replicated and the run is the same, bit for bit, as without a mesh.  As
-in the reference, the CLI has no mesh flag (its docstring names one,
-ROADMAP C-R35).
+``mesh`` (``launch.mesh``) trains under a device mesh, as the reference
+does: the mesh is activated for the model code, and the step is built
+without ``grad_shardings`` (each gradient is placed as its parameter's
+DTensor propagation leaves it, where the reference leaves it to the
+partitioner).  On the one-card mesh the parameters live on its device
+and the run is the same, bit for bit, as without a mesh.  On a mesh over
+a process group (``mesh.make_process_mesh``, in every rank) the
+parameters, drawn alike on every rank, are placed by
+``sharding.param_shardings``; every rank draws the same token stream, as
+the reference's single program does, and takes its data shard.
+Checkpoints under such a mesh are not ported.  As in the reference, the
+CLI has no mesh flag (its docstring names one, ROADMAP C-R35).
 """
 
 from __future__ import annotations
@@ -77,6 +82,11 @@ def _to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
+def _scalar(x: torch.Tensor) -> float:
+    """A 0-d tensor's value; a DTensor's as the mesh holds it whole."""
+    return float(x.full_tensor() if shp.is_distributed(x) else x)
+
+
 def train(arch: str, steps: int = 50, batch_size: int = 8, seq_len: int = 64,
           smoke: bool = True, n_micro: int = 1, lr: float = 3e-4,
           ckpt_dir: str | None = None, ckpt_every: int = 20,
@@ -90,11 +100,18 @@ def train(arch: str, steps: int = 50, batch_size: int = 8, seq_len: int = 64,
     stream fast-forwarded past the batches already taken (the reference
     restarts the stream from its seed, ROADMAP C-R34), so a resumed run
     repeats the uninterrupted run's steps.  Under a ``mesh`` the run takes
-    the mesh's first device, so it takes no ``device``."""
+    the mesh's device (this rank's, on a mesh over a process group), so it
+    takes no ``device``."""
+    placed = getattr(mesh, "device_mesh", None) is not None
     if mesh is None:
         dev = resolve_device(device)
     elif device is not None:
         raise ValueError("train: pass a device or a mesh, not both")
+    elif placed:
+        if ckpt_dir:
+            raise NotImplementedError("train: checkpoints under a mesh over "
+                                      "a process group are not ported")
+        dev = mesh.devices[torch.distributed.get_rank()]
     else:
         dev = mesh.devices[0]
     cfg = get_arch(arch)
@@ -104,6 +121,8 @@ def train(arch: str, steps: int = 50, batch_size: int = 8, seq_len: int = 64,
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = make_trainable(api.init_params(gen, param_dtype, dev))
+    if placed:
+        shp.place_params(params, shp.param_shardings(params, cfg, mesh))
     opt_state = adamw.init(dict(params.named_parameters()))
     cast = param_dtype if param_dtype != torch.float32 else None
     step0 = 0
@@ -116,10 +135,7 @@ def train(arch: str, steps: int = 50, batch_size: int = 8, seq_len: int = 64,
             step0 = got_step
             print(f"[train] resumed from step {step0}")
 
-    step_fn = make_train_step(
-        api, n_micro=n_micro, lr=lr, param_dtype=cast,
-        grad_shardings=None if mesh is None else shp.param_shardings(
-            params, cfg, mesh))
+    step_fn = make_train_step(api, n_micro=n_micro, lr=lr, param_dtype=cast)
     source = SyntheticTokens(cfg.vocab_size, seed=seed)
     for _ in range(step0):
         source.batch(batch_size, seq_len)
@@ -131,12 +147,15 @@ def train(arch: str, steps: int = 50, batch_size: int = 8, seq_len: int = 64,
         with nullcontext() if mesh is None else shp.activate(mesh):
             for step in range(step0, step0 + steps):
                 batch = _to_device(pipe.next(), dev)
+                if placed:
+                    batch = {k: shp.place(v, shp.data_sharding(v.shape, mesh))
+                             for k, v in batch.items()}
                 params, opt_state, metrics = step_fn(params, opt_state, batch)
-                losses.append(float(metrics["loss"]))
+                losses.append(_scalar(metrics["loss"]))
                 if (step + 1) % log_every == 0:
                     dt = time.time() - t0
                     print(f"[train] step {step + 1} loss {losses[-1]:.4f} "
-                          f"gnorm {float(metrics['grad_norm']):.3f} "
+                          f"gnorm {_scalar(metrics['grad_norm']):.3f} "
                           f"({dt / log_every:.2f}s/step)")
                     t0 = time.time()
                 if ckpt_dir and (step + 1) % ckpt_every == 0:

@@ -97,10 +97,3 @@ def cache_window(cfg, max_len: int) -> int:
 def ring_slot(t: int, window: int) -> int:
     return t % window
 
-
-def write_slot(cache_layer: torch.Tensor, slot: int,
-               value: torch.Tensor) -> torch.Tensor:
-    """cache_layer (B, W, ...) ← value (B, 1, ...) at ``slot``, in place;
-    returns cache_layer."""
-    cache_layer[:, slot] = value[:, 0]
-    return cache_layer

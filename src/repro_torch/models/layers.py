@@ -2,13 +2,15 @@
 and GELU MLPs, top-k MoE.
 
 Counterpart of ``repro/models/layers.py``, with its names, weight layouts
-((d_in, d_out) matrices) and order of roundings.  The reference's
-``constrain`` sharding hints are left out: ``launch.sharding.constrain``
-is ported, but on one card every hint resolves to replicated and returns
-its input, so the layers call none.  So is ``moe_layer_local``, the
-reference's ``shard_map`` form of the MoE layer, which on one device is
-``moe_layer``.  Both come with the port's multi-device half, its last
-module slice (ROADMAP A-11).
+((d_in, d_out) matrices) and order of roundings, and its ``constrain``
+sharding hints at the same logical specs (``launch.sharding``): outside
+a mesh and on the one-card mesh each returns its input, and under a mesh
+over a process group it places the activation as a DTensor.  The
+kernels take each rank's local shards (``sharding.local_call``), with
+heads split over "model" where the heads and KV heads both divide it,
+as GSPMD splits the reference's head-sharded q/k/v.
+``moe_layer_local`` is the reference's ``shard_map`` form of the MoE
+layer, with explicit collectives.
 
 Full-sequence attention goes through ``kernels.ops.flash_attention`` (the
 CUDA kernel on a card, its plain version on the CPU) inside
@@ -32,6 +34,8 @@ import torch.nn.functional as F
 
 from ..kernels import autograd as kernel_autograd
 from ..kernels.ref import MASKED
+from ..launch import sharding as shp
+from ..launch.sharding import constrain
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
@@ -59,13 +63,15 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None):
 def swiglu_mlp(params, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP: (silu(x W1) * (x W3)) W2."""
     gate = F.silu(dense(x, params["w1"]))
-    return dense(gate * dense(x, params["w3"]), params["w2"])
+    h = constrain(gate * dense(x, params["w3"]), "batch", None, "model")
+    return dense(h, params["w2"])
 
 
 def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
     """GELU MLP with biases: gelu(x W1 + b1) W2 + b2.  ``jax.nn.gelu``
     defaults to the tanh approximation, so this takes it too."""
     h = F.gelu(dense(x, params["w1"], params.get("b1")), approximate="tanh")
+    h = constrain(h, "batch", None, "model")
     return dense(h, params["w2"], params.get("b2"))
 
 
@@ -145,11 +151,17 @@ def attention_full(q, k, v, positions: torch.Tensor, window: int,
     math that ``use_kernel=False`` runs."""
     window = window if causal else 0
     if use_kernel:
-        return kernel_autograd.flash_attention(
-            q, k, v, causal=causal, window=window, scale=scale,
-            math=functools.partial(_masked_attention, positions=positions,
-                                   window=window, scale=scale,
-                                   causal=causal))
+        def kernel(q, k, v, positions):
+            return kernel_autograd.flash_attention(
+                q, k, v, causal=causal, window=window, scale=scale,
+                math=functools.partial(_masked_attention,
+                                       positions=positions, window=window,
+                                       scale=scale, causal=causal))
+        bat, mod = shp.split_elems(shp.active_mesh(), q.shape[0],
+                                   q.shape[2], k.shape[2])
+        heads = (bat, None, mod, None)
+        return shp.local_call(kernel, (q, k, v, positions),
+                              (heads, heads, heads, (None,)), heads)
     return _masked_attention(q, k, v, positions, window, scale, causal)
 
 
@@ -183,9 +195,11 @@ def gqa_project_qkv(params, x: torch.Tensor, cfg, positions: torch.Tensor):
     k/v (B, S, KH, hd); positions (S,) or (B, S)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = dense(x, params["wq"], params.get("bq")).reshape(b, s, h, hd)
-    k = dense(x, params["wk"], params.get("bk")).reshape(b, s, kv, hd)
-    v = dense(x, params["wv"], params.get("bv")).reshape(b, s, kv, hd)
+    q, k, v = (constrain(dense(x, params["w" + n], params.get("b" + n)),
+                         "batch", None, "model") for n in "qkv")
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kv, hd)
+    v = v.reshape(b, s, kv, hd)
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
@@ -199,7 +213,8 @@ def gqa_attention(params, x: torch.Tensor, cfg, positions: torch.Tensor,
     out = attention_full(q, k, v, positions, cfg.sliding_window,
                          cfg.d_head ** -0.5, use_kernel=use_kernel)
     b, s = x.shape[:2]
-    return dense(out.reshape(b, s, cfg.n_heads * cfg.d_head), params["wo"])
+    out = out.reshape(b, s, cfg.n_heads * cfg.d_head)
+    return dense(constrain(out, "batch", None, "model"), params["wo"])
 
 
 # --------------------------------------------------------------------------
@@ -373,56 +388,41 @@ def moe_capacity(tokens: int, cfg, capacity_factor: float) -> int:
     return max(cap, k)
 
 
-def moe_route(moe: MoE, xt: torch.Tensor, k: int):
-    """The router in float32 for tokens xt (T, D): the softmax over the
+def moe_route(router: torch.Tensor, xt: torch.Tensor, k: int):
+    """The router (D, E) in float32 for tokens xt (T, D): the softmax over the
     experts' logits (T, E), the top k experts of each token (T, k) and
     their probabilities renormalised to sum to 1.  A router a bf16
     training step has cast runs in float32 on its bf16 values, as the
     reference's type promotion does."""
-    probs = torch.softmax(dense(xt.float(), moe.router.float()), dim=-1)
+    probs = torch.softmax(dense(xt.float(), router.float()), dim=-1)
     topk_p, topk_e = torch.topk(probs, k, dim=-1)
     return probs, topk_p / topk_p.sum(-1, keepdim=True).clamp_min(1e-9), \
         topk_e
 
 
-def moe_layer(moe: MoE, x: torch.Tensor, cfg,
-              capacity_factor: float | None = None):
-    """Top-k MoE with capacity-bounded expert buffers: x (B, S, D) →
-    (B, S, D) and the Switch-style load-balancing loss (float32 scalar).
-
-    Route in float32 (softmax over the router's logits, top k, weights
-    renormalised); rank each (token, expert) pair within its expert by a
-    cumulative count in flat (token, k) order; a pair whose rank reaches
-    the capacity C goes to the drop bin, slot C, and contributes nothing.
-    The pairs are scattered into (E, C + 1, D) buffers, the experts run as
-    batched products over (E, C, D) x (E, D, F), and each token's k
-    weighted outputs are added up in x's type, in order (the reference's
-    scatter-add)."""
-    b, s, d = x.shape
+def _moe_dispatch(router: torch.Tensor, xt: torch.Tensor, cfg, cap: int):
+    """Route tokens xt (T, D) and scatter each kept (token, expert) pair
+    into the (E, C, D) expert buffers: returns the buffers, the aux loss
+    and what the combine needs (flat_e, slot, keep, flat_p)."""
+    t, d = xt.shape
     e, k = cfg.n_experts, cfg.top_k
-    t = b * s
-    xt = x.reshape(t, d)
-
-    probs, topk_p, topk_e = moe_route(moe, xt, k)
+    probs, topk_p, topk_e = moe_route(router, xt, k)
 
     flat_e = topk_e.reshape(-1)                                     # (T·k,)
     me = probs.mean(dim=0)
-    ce = torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(
+    ce = torch.zeros(e, dtype=torch.float32, device=xt.device).index_add_(
         0, flat_e, torch.ones_like(flat_e, dtype=torch.float32)) / (t * k)
     aux = e * torch.sum(me * ce)
 
-    if capacity_factor is None:
-        capacity_factor = cfg.moe_capacity_factor
-    cap = moe_capacity(t, cfg, capacity_factor)
-    flat_p = topk_p.reshape(-1).to(x.dtype)
-    flat_tok = torch.arange(t, device=x.device)[:, None].expand(t, k) \
+    flat_p = topk_p.reshape(-1).to(xt.dtype)
+    flat_tok = torch.arange(t, device=xt.device)[:, None].expand(t, k) \
         .reshape(-1)                                # pair i is token i // k
 
     # the one-hot laid out (E, T·k), so that the count runs along the
     # contiguous axis (along the outer one, CUDA scans with one thread an
     # expert: 366 of olmoe-1b-7b's 521 ms bf16 prefill on an H100,
     # scripts/probe_lms.py)
-    onehot = (flat_e[None, :] == torch.arange(e, device=x.device)[:, None]
+    onehot = (flat_e[None, :] == torch.arange(e, device=xt.device)[:, None]
               ).long()
     rank = (torch.cumsum(onehot, dim=1) - onehot).gather(
         0, flat_e[None, :])[0]
@@ -431,20 +431,243 @@ def moe_layer(moe: MoE, x: torch.Tensor, cfg,
 
     # kept pairs land in distinct slots (the reference's add into zeros is
     # a write there); the drop bin, slot C, is cut off unread
-    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((e, cap + 1, d), dtype=xt.dtype, device=xt.device)
     buf[flat_e, slot] = xt[flat_tok]
-    buf = buf[:, :cap]
-    ew = moe.experts
-    gate = F.silu(torch.bmm(buf, ew["w1"]))
-    out_buf = torch.bmm(gate * torch.bmm(buf, ew["w3"]), ew["w2"])
-    out_buf = torch.cat([out_buf, out_buf.new_zeros((e, 1, d))], dim=1)
+    return buf[:, :cap], aux, flat_e, slot, keep, flat_p
 
-    y = out_buf[flat_e, slot] * flat_p[:, None] * keep[:, None].to(x.dtype)
-    # the reference's scatter-add, its k updates of a token applied in
-    # order: deterministic, where index_add_ on a card adds by atomics in
-    # an order that changes from run to run (bf16 sums round differently)
-    y = y.reshape(t, k, d)
+
+def _moe_experts(buf: torch.Tensor, w1, w3, w2) -> torch.Tensor:
+    """The experts' SwiGLU as batched products over (E, C, D) buffers."""
+    gate = F.silu(torch.bmm(buf, w1))
+    return torch.bmm(gate * torch.bmm(buf, w3), w2)
+
+
+def _moe_combine(out_buf: torch.Tensor, flat_e, slot, keep,
+                 flat_p, k: int) -> torch.Tensor:
+    """Each token's k weighted expert outputs (T, D), the dropped pairs'
+    read from the zero drop bin; added in order (the reference's
+    scatter-add, its k updates of a token applied in order: deterministic,
+    where index_add_ on a card adds by atomics in an order that changes
+    from run to run, and bf16 sums round differently)."""
+    e, _, d = out_buf.shape
+    out_buf = torch.cat([out_buf, out_buf.new_zeros((e, 1, d))], dim=1)
+    y = out_buf[flat_e, slot] * flat_p[:, None] * keep[:, None].to(
+        out_buf.dtype)
+    y = y.reshape(-1, k, d)
     out = y[:, 0]
     for j in range(1, k):
         out = out + y[:, j]
+    return out
+
+
+def moe_layer(moe: MoE, x: torch.Tensor, cfg,
+              capacity_factor: float | None = None, _global: bool = False):
+    """Top-k MoE with capacity-bounded expert buffers: x (B, S, D) →
+    (B, S, D) and the Switch-style load-balancing loss (float32 scalar).
+    ``cfg.moe_buffer_shard == "local"`` takes ``moe_layer_local`` unless
+    ``_global``.
+
+    Route in float32 (softmax over the router's logits, top k, weights
+    renormalised); rank each (token, expert) pair within its expert by a
+    cumulative count in flat (token, k) order; a pair whose rank reaches
+    the capacity C goes to the drop bin, slot C, and contributes nothing.
+    The pairs are scattered into (E, C + 1, D) buffers, the experts run as
+    batched products over (E, C, D) x (E, D, F), and each token's k
+    weighted outputs are added up in x's type, in order (the reference's
+    scatter-add).  Under a mesh over a process group the global dispatch
+    and combine see every token (each rank's local call on the gathered
+    tokens), and the buffers take the reference's hint: expert-parallel
+    over "model" when it divides E, else ``capacity`` or ``capacity2d``
+    by ``cfg.moe_buffer_shard``; the expert products run on DTensors."""
+    if not _global and cfg.moe_buffer_shard == "local":
+        return moe_layer_local(moe, x, cfg, capacity_factor)
+    b, s, d = x.shape
+    t = b * s
+    if capacity_factor is None:
+        capacity_factor = cfg.moe_capacity_factor
+    cap = moe_capacity(t, cfg, capacity_factor)
+    every = (None,) * 3
+    buf, aux, *route = shp.local_call(
+        functools.partial(_moe_dispatch, cfg=cfg, cap=cap),
+        (moe.router, x.reshape(t, d)), ((None, None), (None, None)),
+        (every, (), (None,), (None,), (None,), (None,)))
+    mesh = shp.active_mesh()
+    model_size = mesh.shape.get("model", 1) if mesh is not None else 1
+    if model_size > 1 and cfg.n_experts % model_size == 0:
+        buf = constrain(buf, "model", None, None)
+    elif cfg.moe_buffer_shard == "capacity":
+        buf = constrain(buf, None, "model", None)
+    elif cfg.moe_buffer_shard == "capacity2d":
+        buf = constrain(buf, None, ("data", "model"), None)
+    ew = moe.experts
+    out_buf = _moe_experts(buf, ew["w1"], ew["w3"], ew["w2"])
+    out = shp.local_call(
+        functools.partial(_moe_combine, k=cfg.top_k), (out_buf, *route),
+        (every, (None,), (None,), (None,), (None,)), (None, None))
     return out.reshape(b, s, d), aux
+
+
+def _collective(name: str, x: torch.Tensor, *args, group) -> torch.Tensor:
+    """A functional collective (``torch.ops._c10d_functional``) over
+    ``group``, waited for: the calls DTensor makes, so that a gloo group on
+    a card stages these too (``launch.host_collectives``)."""
+    fc = torch.ops._c10d_functional
+    return fc.wait_tensor(getattr(fc, name)(x.contiguous(), *args,
+                                            group.group_name))
+
+
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    return _collective("all_reduce", x, "sum", group=group)
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over ``group`` forward; the gradient passes as it is (the output
+    is the same on every rank, and so is its gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GradAllReduce(torch.autograd.Function):
+    """The identity forward; the gradient summed over ``group`` (each rank
+    holds the part of it that its shard of the weights contributes)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    """The shards of ``group`` concatenated along ``dim`` forward; the
+    gradient summed over the group and cut back to this rank's shard
+    backward (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = torch.distributed.get_world_size(group)
+        out = _collective("all_gather_into_tensor", x.movedim(dim, 0), n,
+                          group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = torch.distributed.get_world_size(ctx.group)
+        out = _collective("reduce_scatter_tensor", g.movedim(ctx.dim, 0),
+                          "sum", n, group=ctx.group)
+        return out.movedim(0, ctx.dim), None, None
+
+
+class _Mean(torch.autograd.Function):
+    """The mean over ``group`` forward; each rank's share of the gradient,
+    g / n, backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = torch.distributed.get_world_size(group)
+        return _sum(x, group) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def moe_local_specs(cfg) -> dict:
+    """The expert weights' specs that ``moe_layer_local`` computes in: F
+    over "model", and under ``cfg.fsdp`` D over "data".  Weights placed so
+    take no redistribution a call (``param_shardings`` places experts
+    expert-parallel where "model" divides E)."""
+    fsdp = "data" if cfg.fsdp else None
+    return {"w1": (None, fsdp, "model"), "w3": (None, fsdp, "model"),
+            "w2": (None, "model", fsdp)}
+
+
+def moe_layer_local(moe: MoE, x: torch.Tensor, cfg,
+                    capacity_factor: float | None = None):
+    """The reference's locality-aware MoE: tokens are dispatched within
+    their data shard (no token crosses a shard), the expert weights stay
+    tensor-parallel over "model" (F split), under ``cfg.fsdp`` gathered
+    over "data" (w1 and w3 on their D axis, w2 on its), the experts'
+    down-projections summed over "model", the aux loss averaged over the
+    data axes, and the capacity taken from the local token count.  Each
+    rank runs the body on its local shards with explicit collectives
+    whose backward is the matching collective.  Falls back to the global
+    layer where the reference does: no mesh, no data axis over 1, a model
+    axis of 1, or an F (or, under fsdp, a D) that does not divide."""
+    mesh = shp.active_mesh()
+    if capacity_factor is None:
+        capacity_factor = cfg.moe_capacity_factor
+    if mesh is None:
+        return moe_layer(moe, x, cfg, capacity_factor, _global=True)
+    data_axes = tuple(a for a in ("pod", "data")
+                      if a in mesh.axis_names and mesh.shape[a] > 1)
+    model_sz = mesh.shape.get("model", 1)
+    d, f = cfg.d_model, cfg.expert_ff
+    dp = math.prod(mesh.shape[a] for a in data_axes)
+    usable = (data_axes and model_sz > 1 and f % model_sz == 0
+              and (not cfg.fsdp or d % dp == 0))
+    if not usable:
+        return moe_layer(moe, x, cfg, capacity_factor, _global=True)
+    if getattr(mesh, "device_mesh", None) is None:
+        raise NotImplementedError(
+            f"moe_layer_local over mesh axes {dict(mesh.shape)} needs a "
+            "process group (mesh.make_process_mesh)")
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    dm = mesh.device_mesh
+    b, s, _ = x.shape
+    k = cfg.top_k
+    t_local = (b // dp) * s
+    cap = moe_capacity(t_local, cfg, capacity_factor)
+    data_group = dm.get_group("data")
+    model_group = dm.get_group("model")
+    batch_group = (data_group if data_axes == ("data",)
+                   else dm._flatten(data_axes).get_group())
+    bat = data_axes if len(data_axes) > 1 else data_axes[0]
+
+    def local(x_dt, spec, grad_spec):
+        x_dt = shp.as_dtensor(x_dt, mesh)
+        return x_dt.redistribute(dm, shp.placements(spec, mesh)).to_local(
+            grad_placements=grad_spec)
+
+    # the gradients: a weight's is each rank's part along an axis it is
+    # whole on (its tokens' part; under fsdp _AllGather sums over "data"
+    # itself); the router's a sum over the data ranks' tokens; the tokens'
+    # whole on every model rank (their expert part summed over "model" by
+    # _GradAllReduce)
+    router = local(moe.router, (None, None),
+                   [Partial() if a in data_axes else Replicate()
+                    for a in mesh.axis_names])
+    w1, w3, w2 = (local(moe.experts[name], spec,
+                        [p if isinstance(p, Shard) else Partial()
+                         for p in shp.placements(spec, mesh)])
+                  for name, spec in moe_local_specs(cfg).items())
+    xl = local(x, (bat, None, None),
+               [Shard(0) if a in data_axes else Replicate()
+                for a in mesh.axis_names])
+    if cfg.fsdp:
+        w1 = _AllGather.apply(w1, 1, data_group)
+        w3 = _AllGather.apply(w3, 1, data_group)
+        w2 = _AllGather.apply(w2, 2, data_group)
+    bl, sl, _ = xl.shape
+    buf, aux, *route = _moe_dispatch(router, xl.reshape(bl * sl, d), cfg,
+                                     cap)
+    aux = _Mean.apply(aux, batch_group)
+    out_buf = _AllReduce.apply(
+        _moe_experts(_GradAllReduce.apply(buf, model_group), w1, w3, w2),
+        model_group)
+    out = _moe_combine(out_buf, *route, k).reshape(bl, sl, d)
+    return (DTensor.from_local(out, dm, shp.placements((bat, None, None),
+                                                        mesh),
+                               run_check=False),
+            DTensor.from_local(aux, dm, [Replicate()] * dm.ndim,
+                               run_check=False))

@@ -27,6 +27,8 @@ import torch.nn.functional as F
 
 from ..kernels import autograd as kernel_autograd
 from ..kernels.ref import per_head, ssd_scan_ref
+from ..launch import sharding as shp
+from ..launch.sharding import constrain
 from .layers import dense, rmsnorm
 
 
@@ -170,15 +172,24 @@ def ssm_forward(params, x: torch.Tensor, cfg, *, use_kernel: bool = True):
     dt = F.softplus(dt.float() + params["dt_bias"])
     chunk = cfg.ssm_chunk if slen % cfg.ssm_chunk == 0 else slen
     if use_kernel:
-        y, state = kernel_autograd.ssd_scan(
-            x_in, dt, params["A_log"], b, c,
-            math=functools.partial(ssd_chunked, chunk=chunk))
+        bat, mod = shp.split_elems(shp.active_mesh(), bsz, cfg.ssm_nheads,
+                                   *(() if cfg.ssm_ngroups == 1
+                                     else (cfg.ssm_ngroups,)))
+        heads = (bat, None, mod, None)
+        groups = (bat, None, mod if cfg.ssm_ngroups > 1 else None, None)
+        y, state = shp.local_call(
+            lambda *a: kernel_autograd.ssd_scan(
+                *a, math=functools.partial(ssd_chunked, chunk=chunk)),
+            (x_in, dt, params["A_log"], b, c),
+            (heads, (bat, None, mod), (mod,), groups, groups),
+            (heads, (bat, mod, None, None)))
     else:
         y, state = ssd_chunked(x_in, dt, params["A_log"], b, c, chunk)
     y = y + params["D"].to(x.dtype)[:, None] * x_in
     y = y.reshape(bsz, slen, cfg.d_inner)
     y = rmsnorm(y * F.silu(z), params["ssm_norm"], cfg.norm_eps)
-    return dense(y, params["out_proj"]), {"state": state, "conv": new_conv}
+    return constrain(dense(y, params["out_proj"]), "batch", None, None), \
+        {"state": state, "conv": new_conv}
 
 
 def ssm_decode_step(params, x: torch.Tensor, cfg, carry: dict):

@@ -64,10 +64,11 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels import ops
+from ..launch import sharding as shp
+from ..launch.sharding import constrain
 from ..optim.adamw import AdamWState
 from .cache import (cache_window, dequantize_kv, init_kv_cache,
-                    init_mla_cache, init_ssm_cache, quantize_kv, ring_slot,
-                    write_slot)
+                    init_mla_cache, init_ssm_cache, quantize_kv, ring_slot)
 from .layers import (MoE, attention_core, attention_full, dense, gelu_mlp,
                      gqa_attention, gqa_project_qkv, init_gqa_params,
                      init_mla_params, init_moe_params, layernorm,
@@ -201,15 +202,32 @@ def _no_extra(cfg, extra) -> None:
                          "extra input (patch or frame embeddings)")
 
 
+def _embed_tokens(params: DecoderLM, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings (B, S, D), split by batch under a mesh."""
+    return constrain(shp.embedding(tokens, params.embed), "batch", None,
+                     None)
+
+
 def _embed(params: DecoderLM, cfg, tokens: torch.Tensor, extra):
     """Token embeddings (B, S, D); a VLM's patch embeddings ``extra``
     (B, n_patches, D), cast to their type, go in front."""
-    h = F.embedding(tokens, params.embed)
     if extra is None:
-        return h
+        return _embed_tokens(params, tokens)
+    h = _embed_tokens(params, tokens)
     if cfg.family != "vlm":
         _no_extra(cfg, extra)
-    return torch.cat([extra.to(h.dtype), h], dim=1)
+    return constrain(torch.cat([extra.to(h.dtype), h], dim=1), "batch", None,
+                     None)
+
+
+def _placed(cfg, cache: dict) -> dict:
+    """A new cache placed by ``cache_shardings`` under a mesh over a
+    process group (batch over the data axes, KV heads or SSM heads over
+    "model"); as it is elsewhere."""
+    mesh = shp.active_mesh()
+    if getattr(mesh, "device_mesh", None) is None:
+        return cache
+    return shp.place_cache(cache, shp.cache_shardings(cache, cfg, mesh))
 
 
 def _ring_scatter(cache: dict, layer: int, entries: dict,
@@ -223,15 +241,20 @@ def _ring_scatter(cache: dict, layer: int, entries: dict,
     w = cache["pos"].shape[0]
     kept = positions[-w:]
     slots = kept.long() % w
+    at = (slice(None), slots)
     for name, x in entries.items():
+        x = x[:, -w:]
         if name + "_scale" in cache:
-            ring = x.new_zeros((x.shape[0], w, *x.shape[2:]))
-            ring[:, slots] = x[:, -w:]
-            cache[name][layer], cache[name + "_scale"][layer] = \
-                quantize_kv(ring)
-        else:
-            cache[name][layer][:, slots] = x[:, -w:]
-    cache["pos"][slots] = kept
+            # quantised one vector at a time: the empty ring's, then the
+            # entries' into their slots
+            empty = quantize_kv(torch.zeros((x.shape[0], w, *x.shape[2:]),
+                                            dtype=x.dtype, device=x.device))
+            for key, part in zip((name, name + "_scale"), empty):
+                shp.write_cache(cache, key, layer, part)
+            x, scale = quantize_kv(x)
+            shp.write_cache(cache, name + "_scale", layer, scale, at)
+        shp.write_cache(cache, name, layer, x, at)
+    shp.local_tensor(cache["pos"])[slots] = kept
 
 
 def _attn_prefill(cfg, attn, hn: torch.Tensor, cache: dict, layer: int,
@@ -253,7 +276,7 @@ def _advance_ring(cache: dict) -> int:
     return the slot."""
     t = cache["t"]
     slot = ring_slot(t, cache["pos"].shape[0])
-    cache["pos"][slot].fill_(t)
+    shp.local_tensor(cache["pos"])[slot].fill_(t)
     return slot
 
 
@@ -264,11 +287,15 @@ def _write_kv(cache: dict, name: str, layer: int, slot: int,
     reads it: the layer itself, or for an int8 cache x quantised into the
     slot and the whole layer dequantised to x's type (the reference's
     ``_attn_decode_gqa_q8``)."""
+    at = (slice(None), slice(slot, slot + 1))
     if name + "_scale" not in cache:
-        return write_slot(cache[name][layer], slot, x)
-    values, scales = cache[name][layer], cache[name + "_scale"][layer]
-    values[:, slot], scales[:, slot] = quantize_kv(x[:, 0])
-    return dequantize_kv(values, scales, x.dtype)
+        shp.write_cache(cache, name, layer, x, at)
+        return cache[name][layer]
+    q, scale = quantize_kv(x)
+    shp.write_cache(cache, name, layer, q, at)
+    shp.write_cache(cache, name + "_scale", layer, scale, at)
+    return dequantize_kv(cache[name][layer], cache[name + "_scale"][layer],
+                         x.dtype)
 
 
 def _attn_decode(cfg, attn, hn: torch.Tensor, cache: dict, layer: int,
@@ -293,9 +320,16 @@ def _attn_decode(cfg, attn, hn: torch.Tensor, cache: dict, layer: int,
 def _decode_core(q, k_l, v_l, pos: torch.Tensor, scale: float,
                  use_kernel: bool) -> torch.Tensor:
     """One query token against a cache layer where ``pos >= 0``: the
-    decode-attention kernel, or the reference's ``attention_core``."""
+    decode-attention kernel (on each rank's local heads under a mesh), or
+    the reference's ``attention_core``."""
     if use_kernel:
-        return ops.decode_attention(q, k_l, v_l, pos, scale=scale)
+        bat, mod = shp.split_elems(shp.active_mesh(), q.shape[0], q.shape[2],
+                                   k_l.shape[2])
+        heads = (bat, None, mod, None)
+        return shp.local_call(
+            lambda q, k, v, pos: ops.decode_attention(q, k, v, pos,
+                                                      scale=scale),
+            (q, k_l, v_l, pos), (heads, heads, heads, (None,)), heads)
     return attention_core(q, k_l, v_l, (pos >= 0)[None, :], scale)
 
 
@@ -308,8 +342,10 @@ def _mla_decode(cfg, attn, hn: torch.Tensor, cache: dict, layer: int,
     pos_arr = torch.full((b, 1), cache["t"], dtype=torch.int32,
                          device=hn.device)
     c_q, c_kv, k_rope = mla_latents(attn, hn, cfg, pos_arr)
-    ckv_l = write_slot(cache["ckv"][layer], slot, c_kv)
-    kr_l = write_slot(cache["krope"][layer], slot, k_rope)
+    for name, x in (("ckv", c_kv), ("krope", k_rope)):
+        shp.write_cache(cache, name, layer, x,
+                        (slice(None), slice(slot, slot + 1)))
+    ckv_l, kr_l = cache["ckv"][layer], cache["krope"][layer]
     return mla_decode_absorbed(attn, c_q, cfg, ckv_l, kr_l,
                                cache["pos"] >= 0, pos_arr)
 
@@ -348,7 +384,7 @@ def make_decoder_lm(cfg: ArchConfig) -> ModelApi:
             h = h + gqa_attention(layer.attn, hn, cfg, positions,
                                   use_kernel=use_kernel)
         out, aux = _ffn(cfg, layer, rmsnorm(h, layer.mlp_norm, eps))
-        return h + out, aux
+        return constrain(h + out, "batch", None, None), aux
 
     def forward(params: DecoderLM, tokens: torch.Tensor, extra=None, *,
                 use_kernel: bool = True):
@@ -383,7 +419,7 @@ def make_decoder_lm(cfg: ArchConfig) -> ModelApi:
         h = _embed(params, cfg, tokens, extra)
         b, s = h.shape[:2]
         positions = torch.arange(s, dtype=torch.int32, device=h.device)
-        cache = init_cache(b, max_len, h.dtype, h.device)
+        cache = _placed(cfg, init_cache(b, max_len, h.dtype, h.device))
         for i, layer in enumerate(params.layers):
             hn = rmsnorm(h, layer.attn_norm, eps)
             if mla:
@@ -407,7 +443,7 @@ def make_decoder_lm(cfg: ArchConfig) -> ModelApi:
         every layer in place.  Returns logits (B, 1, V) and the cache.  MLA
         runs no kernel (``use_kernel`` is taken for a uniform API)."""
         slot = _advance_ring(cache)
-        h = F.embedding(tokens, params.embed)
+        h = _embed_tokens(params, tokens)
         for i, layer in enumerate(params.layers):
             hn = rmsnorm(h, layer.attn_norm, eps)
             if mla:
@@ -441,19 +477,42 @@ def _mamba_prefill(cfg, layer: Layer, h: torch.Tensor, cache: dict,
     land in cache entry ``index`` of ``state`` and ``conv``."""
     out, carry = ssm_forward(layer.ssm, rmsnorm(h, layer.norm, cfg.norm_eps),
                              cfg, use_kernel=use_kernel)
-    cache["state"][index].copy_(carry["state"])
-    cache["conv"][index].copy_(carry["conv"])
+    for name in ("state", "conv"):
+        shp.write_cache(cache, name, index, carry[name])
     return h + out
 
 
 def _mamba_decode(cfg, layer: Layer, h: torch.Tensor, cache: dict,
                   index: tuple) -> torch.Tensor:
     """One Mamba-2 block for one token, advancing cache entry ``index`` in
-    place."""
-    out, _ = ssm_decode_step(layer.ssm, rmsnorm(h, layer.norm, cfg.norm_eps),
-                             cfg, {"state": cache["state"][index],
-                                   "conv": cache["conv"][index]})
-    return h + out
+    place.  Under a mesh over a process group each rank steps its batch
+    shard with the layer's weights gathered (the step is plain PyTorch,
+    a few small products), and keeps its shard of the new carry."""
+    if not shp.is_distributed(cache["state"]):
+        out, _ = ssm_decode_step(layer.ssm,
+                                 rmsnorm(h, layer.norm, cfg.norm_eps), cfg,
+                                 {"state": cache["state"][index],
+                                  "conv": cache["conv"][index]})
+        return h + out
+    names = list(layer.ssm.keys())
+
+    def step(h, state, conv, norm, *weights):
+        carry = {"state": state.clone(), "conv": conv.clone()}
+        out, _ = ssm_decode_step(dict(zip(names, weights)),
+                                 rmsnorm(h, norm, cfg.norm_eps), cfg, carry)
+        return h + out, carry["state"], carry["conv"]
+
+    bat, _ = shp.split_elems(shp.active_mesh(), h.shape[0])
+    weights = [layer.ssm[n] for n in names]
+    carried = (cache["state"][index], cache["conv"][index])
+    h, *new = shp.local_call(
+        step, (h, *carried, layer.norm, *weights),
+        ((bat, None, None), (bat, None, None, None), (bat, None, None),
+         (None,), *((None,) * w.dim() for w in weights)),
+        ((bat, None, None), (bat, None, None, None), (bat, None, None)))
+    for name, x in zip(("state", "conv"), new):
+        shp.write_cache(cache, name, index, x)
+    return h
 
 
 def make_ssm_lm(cfg: ArchConfig) -> ModelApi:
@@ -477,7 +536,7 @@ def make_ssm_lm(cfg: ArchConfig) -> ModelApi:
     def forward(params: DecoderLM, tokens: torch.Tensor, extra=None, *,
                 use_kernel: bool = True):
         _no_extra(cfg, extra)
-        h = F.embedding(tokens, params.embed)
+        h = _embed_tokens(params, tokens)
         for layer in params.layers:
             h = _remat(cfg, block, layer, h, use_kernel)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -493,8 +552,9 @@ def make_ssm_lm(cfg: ArchConfig) -> ModelApi:
         """Run the prompt tokens (B, S) through the SSD scan (one kernel
         launch per layer); returns the cache and the last logits (B, 1, V)."""
         _no_extra(cfg, extra)
-        h = F.embedding(tokens, params.embed)
-        cache = init_cache(tokens.shape[0], max_len, device=h.device)
+        h = _embed_tokens(params, tokens)
+        cache = _placed(cfg, init_cache(tokens.shape[0], max_len,
+                                        device=h.device))
         for i, layer in enumerate(params.layers):
             h = _mamba_prefill(cfg, layer, h, cache, (i,), use_kernel)
         cache["t"] = tokens.shape[1]
@@ -505,7 +565,7 @@ def make_ssm_lm(cfg: ArchConfig) -> ModelApi:
         """One new token (B, 1) per sequence; advances every layer's state
         and conv carry in place.  No kernel runs here (``use_kernel`` is
         taken for a uniform API)."""
-        h = F.embedding(tokens, params.embed)
+        h = _embed_tokens(params, tokens)
         for i, layer in enumerate(params.layers):
             h = _mamba_decode(cfg, layer, h, cache, (i,))
         cache["t"] += 1
@@ -552,7 +612,7 @@ def make_hybrid_lm(cfg: ArchConfig) -> ModelApi:
     def forward(params: DecoderLM, tokens: torch.Tensor, extra=None, *,
                 use_kernel: bool = True):
         _no_extra(cfg, extra)
-        h = F.embedding(tokens, params.embed)
+        h = _embed_tokens(params, tokens)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=h.device)
         for s in range(n_super):
@@ -577,10 +637,10 @@ def make_hybrid_lm(cfg: ArchConfig) -> ModelApi:
         attention, its keys and values into the super-block's ring layer.
         Returns the cache and the last logits (B, 1, V)."""
         _no_extra(cfg, extra)
-        h = F.embedding(tokens, params.embed)
+        h = _embed_tokens(params, tokens)
         b, s_len = tokens.shape
         positions = torch.arange(s_len, dtype=torch.int32, device=h.device)
-        cache = init_cache(b, max_len, h.dtype, h.device)
+        cache = _placed(cfg, init_cache(b, max_len, h.dtype, h.device))
         sh = params.shared
         for s in range(n_super):
             for j, layer in enumerate(_mamba(params, s)):
@@ -597,7 +657,7 @@ def make_hybrid_lm(cfg: ArchConfig) -> ModelApi:
         their state in place, the shared block writes slot t mod W of its
         ring layer and attends through the decode-attention kernel."""
         slot = _advance_ring(cache)
-        h = F.embedding(tokens, params.embed)
+        h = _embed_tokens(params, tokens)
         sh = params.shared
         for s in range(n_super):
             for j, layer in enumerate(_mamba(params, s)):
@@ -685,7 +745,7 @@ def make_encdec_lm(cfg: ArchConfig) -> ModelApi:
 
     def encode(params: DecoderLM, frames: torch.Tensor, use_kernel=True):
         """The encoder over frames (B, T, D) → (B, T, D)."""
-        h = frames
+        h = constrain(frames, "batch", None, None)
         positions = torch.arange(h.shape[1], dtype=torch.int32,
                                  device=h.device)
         for layer in params.enc_layers:
@@ -731,7 +791,7 @@ def make_encdec_lm(cfg: ArchConfig) -> ModelApi:
                 use_kernel: bool = True):
         """tokens: decoder ids (B, S); extra: frame embeddings (B, T, D)."""
         enc_h = encode(params, _frames(params, extra), use_kernel)
-        h = F.embedding(tokens, params.embed)
+        h = _embed_tokens(params, tokens)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=h.device)
         for layer in params.layers:
@@ -763,17 +823,19 @@ def make_encdec_lm(cfg: ArchConfig) -> ModelApi:
         cross keys and values into ``enc_k``/``enc_v``.  Returns the cache
         and the last logits (B, 1, V)."""
         enc_h = encode(params, _frames(params, extra), use_kernel)
-        h = F.embedding(tokens, params.embed)
+        h = _embed_tokens(params, tokens)
         b, s = tokens.shape
         positions = torch.arange(s, dtype=torch.int32, device=h.device)
-        cache = _cache(b, max_len, h.dtype, h.device, enc_h.shape[1])
+        cache = _placed(cfg, _cache(b, max_len, h.dtype, h.device,
+                                    enc_h.shape[1]))
         for i, layer in enumerate(params.layers):
             hn = layernorm(h, layer.norm1_w, layer.norm1_b, eps)
             h = h + _attn_prefill(cfg, layer.attn, hn, cache, i, positions,
                                   use_kernel)
             hn = layernorm(h, layer.norm3_w, layer.norm3_b, eps)
             enc_k, enc_v = _cross_kv(layer, enc_h)
-            cache["enc_k"][i], cache["enc_v"][i] = enc_k, enc_v
+            for name, x in (("enc_k", enc_k), ("enc_v", enc_v)):
+                shp.write_cache(cache, name, i, x)
             h = h + _cross_full(layer, hn, enc_k, enc_v, use_kernel)
             hn = layernorm(h, layer.norm2_w, layer.norm2_b, eps)
             h = h + gelu_mlp(layer.mlp, hn)
@@ -787,7 +849,7 @@ def make_encdec_lm(cfg: ArchConfig) -> ModelApi:
         place), cross attention through it on the layer's ``enc_k``/
         ``enc_v`` with every slot valid.  Two launches a layer."""
         slot = _advance_ring(cache)
-        h = F.embedding(tokens, params.embed)
+        h = _embed_tokens(params, tokens)
         for i, layer in enumerate(params.layers):
             hn = layernorm(h, layer.norm1_w, layer.norm1_b, eps)
             h = h + _attn_decode(cfg, layer.attn, hn, cache, i, slot,

@@ -34,11 +34,12 @@ class AdamWState(NamedTuple):
 def init(params: Mapping[str, torch.Tensor]) -> AdamWState:
     """The state for ``params`` (name → tensor, e.g. ``dict(model.
     named_parameters())``): step 0, a float32 copy of each as the master,
-    zero moments, on the parameters' device."""
+    zero moments, on the parameters' device (placed as they are)."""
     if not params:
         raise ValueError("adamw.init: no parameters")
     device = next(iter(params.values())).device
-    zeros = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    # zeros_like: a placed parameter (a DTensor) gets moments placed alike
+    zeros = {n: torch.zeros_like(p, dtype=torch.float32)
              for n, p in params.items()}
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=device),

@@ -32,6 +32,17 @@ policy folds P policies into the lane axis (P·B lanes, policy-major).
 kernel's in-carry counters on the batch and grid lanes, from the dispatch
 trace on the host on the single and segment lanes, as the reference.
 
+The grid lane's QoS counts shard over ``lane_devices(device)`` (every
+local card; the CPU alone) where it gives more than one device, as the
+reference's ``shard_map`` over its lane mesh: the workload axis or the
+lane axis, whichever wastes fewer lanes a device, is cyclically padded
+to a multiple of the devices and cut into one ``fcfs_scan`` launch a
+shard, each on its shard's device (two shards on one card on side
+streams), and the counts gathered to the host with the pad cut off.
+Each lane's recurrence is the same, so the counts are the unsharded
+dispatch's bit for bit.  The telemetry grid, the per-row ``states=``
+grid and the latency lanes stay on one device, as in the reference.
+
 Latencies, rates, counts, carries and telemetry are the reference's bit
 for bit on the same arrays: the scan's float32 arithmetic is the same
 (the routed keys one fused multiply-add each, ROADMAP C-R18), the slot
@@ -81,6 +92,18 @@ _MAX_HORIZON = _BIG / 8.0
 # _TIE + priority``; a power of two, so the identity policy's key is exactly
 # ``priority`` (the kernel's own constant).
 _TIE = _fcfs.TIE
+
+
+def lane_devices(device: torch.device) -> list:
+    """The devices the grid lane's QoS counts shard over, the counterpart
+    of the reference's ``jax.local_device_count()``: every local card for
+    a CUDA ``device``, ``[device]`` on the CPU.  A list that names one
+    device more than once runs as many shards there (the tests and the
+    smoke replace this function to force a lane mesh on one card)."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
 
 
 def _check_horizon(t_max: float, context: str) -> None:
@@ -355,7 +378,9 @@ class PoolSimulator:
     """Simulator bound to (model profile, instance type order, workload).
 
     The arrivals, the service table and the slot priorities live on
-    ``device`` (default ``cuda``); ``n_dispatches`` counts the scans run."""
+    ``device`` (default ``cuda``); ``n_dispatches`` counts the simulator's
+    dispatches, ``n_sharded`` those of them sharded over the lane devices
+    (one kernel launch a shard)."""
 
     def __init__(self, model: ModelProfile, types: list[InstanceType],
                  workload: Workload, max_instances: int = 40, device=None):
@@ -377,6 +402,9 @@ class PoolSimulator:
         self._priority = torch.arange(max_instances, dtype=torch.float32,
                                       device=self.device)
         self.n_dispatches = 0
+        self.n_sharded = 0
+        self._grid_consts: dict = {}
+        self._grid_arrs: dict = {}
 
     def _to_dev(self, array, dtype=np.float32) -> torch.Tensor:
         """numpy → ``device``, cast on the host (round to nearest, as
@@ -968,15 +996,125 @@ class PoolSimulator:
                                  warmup, states)
         tos, fr0, folded, n_active, zero, n_p = self._grid_lanes(
             configs, free0, policy, telemetry)
-        r = self._scan(self._to_dev(arrivals), service, tos, fr0,
-                       policy=folded, n_active=n_active)
-        rates = r.counts.cpu().numpy().astype(np.float64) / n
-        tel = (_telemetry(r.tel, len(self.types), zero,
+        devs = lane_devices(self.device)
+        if len(devs) > 1 and not telemetry and fr0.ndim == 2:
+            factors = tuple(float(f) for f in np.asarray(load_factors,
+                                                         dtype=np.float64))
+            counts = self._dispatch_grid_sharded(
+                np.asarray(arrivals, np.float32), service_tables, tos, fr0,
+                devs, factors, folded)
+            tel_out = None
+        else:
+            counts = self._scan(self._to_dev(arrivals), service, tos, fr0,
+                                policy=folded, n_active=n_active)
+            tel_out, counts = counts.tel, counts.counts.cpu().numpy()
+        rates = counts.astype(np.float64) / n
+        tel = (_telemetry(tel_out, len(self.types), zero,
                           (n_w, n_p, n_b) if stacked else None)
                if telemetry else None)
         if stacked:
             rates = rates.reshape(n_w, n_p, n_b)
         return rates, tel
+
+    # ------------------------------------------------- sharded grid lanes
+    def _grid_replicated_consts(self, width: int, devs: list) -> list:
+        """The sweep's constants on every lane device, copied once and
+        cached per (device count, width): the bound service table (1,
+        n_types, nq) and the slot priorities (width,).  (The port's kernel
+        takes the QoS threshold as a host float and needs no slot iota.)"""
+        key = (len(devs), width)
+        cached = self._grid_consts.get(key)
+        if cached is None or cached[0] != devs:
+            per_dev = {}
+            for dev in dict.fromkeys(devs):
+                per_dev[dev] = (self._service[None].to(dev),
+                                self._priority[:width].to(dev))
+            cached = self._grid_consts[key] = (list(devs), per_dev)
+        return [cached[1][dev] for dev in devs]
+
+    def _grid_arr_shards(self, arr: np.ndarray, mode: str, devs: list,
+                         factors: tuple) -> list:
+        """The (W, nq) arrival grid on the lane devices, LRU-cached per
+        (mode, device count, load-factor tuple): one workload-axis shard a
+        device ("w", the rows cyclically padded with duplicate levels to a
+        multiple of the devices; the pad may exceed W), or the whole grid
+        on each ("b").  A hit refreshes its place, so a rescale loop that
+        cycles through more level sets than the 8 it holds evicts the
+        stalest, not the ones it keeps sweeping."""
+        n_dev = len(devs)
+        key = (mode, n_dev, factors)
+        hit = self._grid_arrs.pop(key, None)
+        if hit is None or hit[0] != devs:
+            if mode == "w":
+                n_w = len(arr)
+                pad_w = (-n_w) % n_dev
+                if pad_w:
+                    arr = np.concatenate([arr, arr[np.arange(pad_w) % n_w]])
+                rows = len(arr) // n_dev
+                parts = [arr[i * rows:(i + 1) * rows] for i in range(n_dev)]
+            else:
+                parts = [arr] * n_dev
+            hit = (list(devs), [torch.from_numpy(np.ascontiguousarray(
+                part, dtype=np.float32)).to(dev)
+                for part, dev in zip(parts, devs)])
+            while len(self._grid_arrs) >= 8:
+                self._grid_arrs.pop(next(iter(self._grid_arrs)))
+        # (re-)inserting moves the key to the recent end of the dict
+        self._grid_arrs[key] = hit
+        return hit[1]
+
+    def _dispatch_grid_sharded(self, arr, service_tables, tos, free0, devs,
+                               factors, policy_ops=None) -> np.ndarray:
+        """One sweep of the QoS counts over the lane devices, every grid
+        flavour (plain, stacked tables, routed, both): the workload axis
+        is split (cyclically padded with duplicate levels where it does not
+        divide) unless the lane axis wastes fewer lanes a device (one level
+        over many pools, a wide policy fold), whose slot layouts, carries
+        and policy operands (the lane axis leads) pad cyclically.  One
+        ``fcfs_scan`` launch a shard, on its device's current stream; the
+        (W, L) counts gathered to the host, pad rows or columns cut off."""
+        n_dev = len(devs)
+        n_w, n_b = len(arr), len(tos)
+        width = tos.shape[1]
+        consts = self._grid_replicated_consts(width, devs)
+        tables = (None if service_tables is None
+                  else np.asarray(service_tables, dtype=np.float32))
+        pad_w, pad_b = (-n_w) % n_dev, (-n_b) % n_dev
+        lanes_w_split = ((n_w + pad_w) // n_dev) * n_b
+        lanes_b_split = n_w * ((n_b + pad_b) // n_dev)
+        extra = () if policy_ops is None else tuple(policy_ops)
+        qos_t = _qos_threshold_f32(self.model.qos_latency)
+        split_b = lanes_b_split < lanes_w_split
+        if split_b:
+            idx = np.arange(n_b + pad_b) % n_b
+            tos, free0 = tos[idx], free0[idx]
+            extra = tuple(x[idx] for x in extra)
+            arrs = self._grid_arr_shards(arr, "b", devs, factors)
+            per = (n_b + pad_b) // n_dev
+        else:
+            if tables is not None and pad_w:
+                tables = np.concatenate(
+                    [tables, tables[np.arange(pad_w) % n_w]])
+            arrs = self._grid_arr_shards(arr, "w", devs, factors)
+            per = (n_w + pad_w) // n_dev
+        self.n_dispatches += 1
+        self.n_sharded += 1
+        counts = []
+        for i, dev in enumerate(devs):
+            lanes = slice(i * per, (i + 1) * per) if split_b else slice(None)
+            rows = slice(None) if split_b else slice(i * per, (i + 1) * per)
+
+            def up(x, dtype=np.float32):
+                return torch.from_numpy(np.ascontiguousarray(
+                    x, dtype=dtype)).to(dev)
+            svc = consts[i][0] if tables is None else up(tables[rows])
+            ops_in = (arrs[i], svc, up(tos[lanes], np.int32), consts[i][1],
+                      up(free0[lanes]))
+            pol = tuple(up(x[lanes]) for x in extra) if extra else None
+            counts.append(ops.fcfs_scan(*ops_in, qos_t, policy=pol).counts)
+        out = np.concatenate([c.cpu().numpy() for c in counts],
+                             axis=1 if split_b else 0)
+        return out[:, :n_b] if split_b else out[:n_w]
 
 
 @dataclass(frozen=True)

@@ -66,6 +66,31 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     bad = [m for m in loaded if m == "jax" or m.startswith(("jax.", "jaxlib"))
            or m == "repro" or m.startswith("repro.")]
     assert bad == []
+    assert {"repro_torch.launch.host_collectives"} <= set(modules)
+
+
+def test_rank_code_imports_no_jax_and_no_reference():
+    """What the spawned ranks of ``tests/test_torch_distributed.py`` run
+    (``tests/torch_dist_ranks.py``) and of ``chip_smoke.py``'s phase 12
+    (``chip_smoke.mesh_ranks``, the launcher) import neither JAX nor the
+    reference."""
+    code = (
+        "import json, sys\n"
+        "import torch_dist_ranks, chip_smoke\n"
+        "from repro_torch.launch import mesh\n"
+        "assert callable(torch_dist_ranks.checks)\n"
+        "assert callable(chip_smoke.mesh_ranks)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=_env(PYTHONPATH=os.pathsep.join(
+                             [str(ROOT / "src"), str(ROOT / "tests"),
+                              str(ROOT)])))
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded if m == "jax" or m.startswith(("jax.", "jaxlib"))
+           or m == "repro" or m.startswith("repro.")]
+    assert bad == []
 
 
 def _entry_points():
@@ -97,7 +122,7 @@ def _entry_points():
     encdec_lm = get_model(get_arch("whisper-tiny").reduced())
     from repro_torch.serving import H100_CELLS, search_cells
     from repro_torch.launch.train import train
-    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.mesh import make_local_mesh, run_ranks
     return {
         "ClusterEngine": lambda: ClusterEngine("mtwnd", DEFAULT_CELLS),
         "RibbonOptimizer": lambda: RibbonOptimizer(space),
@@ -119,6 +144,7 @@ def _entry_points():
         "search_cells": lambda: search_cells(list(H100_CELLS.values())),
         "train": lambda: train("mamba2-130m", steps=1),
         "make_local_mesh": lambda: make_local_mesh(),
+        "run_ranks": lambda: run_ranks(len, 2),
         "PoolSimulator": lambda: PoolSimulator(*pool_args),
         "PoolEvaluator": lambda: PoolEvaluator(*pool_args),
         "make_paper_setup": lambda: make_paper_setup("mtwnd", n_queries=10),
@@ -151,6 +177,7 @@ def _entry_points():
                                   "hybrid_init_cache", "moe_init_params",
                                   "encdec_init_params", "encdec_init_cache",
                                   "search_cells", "train", "make_local_mesh",
+                                  "run_ranks",
                                   "PoolSimulator",
                                   "PoolEvaluator", "make_paper_setup",
                                   "segment_from", "grid_from", "rescale",

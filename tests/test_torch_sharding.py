@@ -164,18 +164,37 @@ def test_constrain_applies_inside_mesh():
 
 
 def test_constrain_raises_where_it_would_shard():
+    """A mesh without a process group (a shape-only description) places
+    nothing: a spec that would split a tensor raises, never replicating
+    it quietly; one that resolves to replicated passes the tensor."""
     x = torch.ones((8, 8))
     with shp.activate(FakeMesh(data=2, model=4)):
         # a dim the axis does not divide resolves to replicated
         assert shp.constrain(torch.ones((3, 5)), "batch", "model").shape \
             == (3, 5)
-        with pytest.raises(NotImplementedError, match="A-11"):
+        with pytest.raises(NotImplementedError, match="no process group"):
             shp.constrain(x, "batch", None)
     sharding = shp.NamedSharding(FakeMesh(data=2, model=4), (None, "model"))
-    with pytest.raises(NotImplementedError, match="A-11"):
+    with pytest.raises(NotImplementedError, match="no process group"):
         shp.with_sharding_constraint(x, sharding)
     replicated = shp.NamedSharding(FakeMesh(data=2, model=4), (None, None))
     assert shp.with_sharding_constraint(x, replicated) is x
+
+
+@pytest.mark.parametrize("spec,ndim,want", [
+    (("data", "model"), None, ("Shard(dim=0)", "Shard(dim=1)")),
+    ((("data", "model"), None), None, ("Shard(dim=0)", "Shard(dim=0)")),
+    ((None, "model"), None, ("Replicate()", "Shard(dim=1)")),
+    ((None, None), None, ("Replicate()", "Replicate()")),
+    # a stacked leaf's spec on one layer's tensor: the layer axis dropped
+    ((None, "data", "model"), 2, ("Shard(dim=0)", "Shard(dim=1)")),
+    ((None, None, "model"), 1, ("Replicate()", "Shard(dim=0)"))])
+def test_placements_of_a_spec(spec, ndim, want):
+    """Each mesh axis named in element d of a spec is Shard(d) on its mesh
+    dimension, every other mesh dimension Replicate(); a tuple element
+    splits one dimension over several mesh dimensions."""
+    got = shp.placements(spec, FakeMesh(data=2, model=2), ndim)
+    assert tuple(map(repr, got)) == want
 
 
 def test_data_sharding_matches_reference():
@@ -194,7 +213,7 @@ def test_meshes():
     assert isinstance(mesh, Mesh)
     if torch.cuda.device_count() < 256:
         for multi in (False, True):
-            with pytest.raises(RuntimeError, match="A-11"):
+            with pytest.raises(RuntimeError, match="process group of"):
                 make_production_mesh(multi_pod=multi)
 
 

@@ -198,7 +198,18 @@ print a line and raise on failure:
    fp32 ``train(mesh=)`` step against the one-card step and against a
    float64 witness of it (loss within 1e-5; each leaf's gradient within
    1e-4 x its max |g| plus twice the one-card step's own distance from
-   the witness, phase 8b's rule), then 3 bf16 steps timed;
+   the witness, phase 8b's rule), then 3 bf16 steps timed; (b') the 4
+   ranks on a (1, 4) mesh, whose "model" axis does not divide the 2 KV
+   heads (``sharding.split_heads`` gathers them, ROADMAP C-F6), serve
+   qwen2.5-3b at full width in fp32 cut to 4 layers, prefill 4 x 2048
+   and 8 decode steps within 1e-4 x max |logits| of the one-rank run
+   with the same greedy tokens; (c') mamba2-130m at full width cut to 4
+   layers, bf16 ``train(mesh=)`` on the (2, 2) mesh, B 4 x S 512: 4
+   steps with a checkpoint at steps 2 and 4 (each sharded leaf gathered,
+   rank 0 writes), the step-4 one removed as if the run had been cut
+   after step 2, then a resume for 2 more, bit for bit against the
+   4-step run (losses, parameters, AdamW state), the gather's bytes and
+   the save and restore times printed;
 9. the scenario engine (``repro_torch.scenario``) over mtwnd's simulator
    plane, the engine's GP on the host: diurnal-day at n 2000 / window
    400, spot-churn and tier-outage (the tiered plane: ``serving/fault.py``
@@ -234,10 +245,10 @@ and one in remat's recompute, the fp32 step's in float32, the rest in
 bfloat16; none on the plain paths), before each run of phase 10 and read
 after it (as phase 8b's bf16 runs), just before phase 12(a) and read
 after it (one fcfs_scan launch per unsharded dispatch and one a shard of
-each sharded one, no other kernel), in each rank of phase 12(b) and (c)
-before each run and read after it (a rank's flash launch a layer a
-prefill, decode launch a layer a step, ``ssd_scan`` launch a layer in
-the forward and one in remat's recompute a step), and set to 0 again
+each sharded one, no other kernel), in each rank of phase 12(b), (b'),
+(c) and (c') before each run and read after it (a rank's flash launch a
+layer a prefill, decode launch a layer a step, ``ssd_scan`` launch a
+layer in the forward and one in remat's recompute a step), and set to 0 again
 just before each LM's serving runs and read just after
 them (qwen2.5-3b: one flash-attention launch per layer per prefill and one
 decode-attention launch per layer per step; mamba2-130m: one SSD-scan
@@ -310,7 +321,9 @@ from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
                                      per_head, ssd_scan_ref)
 from repro_torch.kernels.ssd_scan import CHUNK as SSD_CHUNK  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
+from repro_torch.launch import host_collectives  # noqa: E402
 from repro_torch.launch import sharding as shp  # noqa: E402
+from repro_torch.launch import train as train_module  # noqa: E402
 from repro_torch.launch.mesh import (make_local_mesh,  # noqa: E402
                                      make_process_mesh,
                                      make_production_mesh, run_ranks)
@@ -337,6 +350,7 @@ from repro_torch.serving.instance import (AWS_INSTANCES,  # noqa: E402
                                           service_time_lut)
 from repro_torch.serving.autoscaler import LoadMonitor, rescale  # noqa: E402
 from repro_torch.serving import cells as cell_catalog  # noqa: E402
+from repro_torch.serving import checkpoint  # noqa: E402
 from repro_torch.serving.cells import LLM_PROFILE, search_cells  # noqa: E402
 from repro_torch.serving.instance import H100_CELLS  # noqa: E402
 from repro_torch.serving.pool import (PoolEvaluator,  # noqa: E402
@@ -3533,6 +3547,19 @@ SHARD_ARCH, SHARD_GATE_LAYERS = "olmoe-1b-7b", 4
 SHARD_B, SHARD_S, SHARD_STEPS = 4, 2048, 8
 SHARD_TOL = 1e-4
 SHARD_TRAIN_ARCH, SHARD_TRAIN_STEPS = "mamba2-130m", 3
+# (b'): HEADS_ARCH at full width on the same ranks as a HEADS_SHAPE mesh,
+# whose "model" axis does not divide its KV heads, fp32 cut to
+# SHARD_GATE_LAYERS layers: prefill SHARD_B x SHARD_S and SHARD_STEPS
+# greedy decode steps fed the one-rank run's tokens, within SHARD_TOL x
+# max |logits| of that run with the same greedy tokens.  (c'):
+# SHARD_TRAIN_ARCH at full width cut to RESUME_LAYERS layers, bf16
+# train(mesh=) on MESH_SHAPE, B TRAIN_B x S RESUME_S (the staged
+# gather of the logits grows with S; the checkpoint does not):
+# 2 x RESUME_AT steps with a checkpoint every RESUME_AT, the last removed
+# (phase 8b's way), then a resume for RESUME_AT more, against the first
+# run, bit for bit.
+HEADS_ARCH, HEADS_SHAPE = "qwen2.5-3b", (1, 4)
+RESUME_AT, RESUME_LAYERS, RESUME_S = 2, 4, 512
 
 
 @contextmanager
@@ -3690,7 +3717,8 @@ def mesh_settings(device: str = "cuda") -> dict:
                 b=SHARD_B, s=SHARD_S, steps=SHARD_STEPS,
                 train_arch=SHARD_TRAIN_ARCH, train_b=TRAIN_B,
                 train_s=TRAIN_S, train_steps=SHARD_TRAIN_STEPS, smoke=False,
-                changes={})
+                changes={}, heads_arch=HEADS_ARCH, resume_at=RESUME_AT,
+                resume_layers=RESUME_LAYERS, resume_s=RESUME_S)
 
 
 def _arch(job: dict, name: str, **changes):
@@ -3895,23 +3923,160 @@ def _sharded_train(mesh, job: dict) -> dict:
             "peak_gb": _peak_gb(dev)}
 
 
+def _sharded_heads(mesh, job: dict) -> dict:
+    """(b'): the fp32 gate on the (1, 4) mesh: prefill and decode steps fed
+    the one-rank run's greedy tokens; every logits, the cache's k and v
+    placements."""
+    api = get_model(_arch(job, "heads_arch", n_layers=job["gate_layers"]))
+    params = _rank_params(api, mesh, torch.float32, False)
+    dev = mesh.devices[torch.distributed.get_rank()]
+    reset_counts()
+    with shp.activate(mesh), torch.no_grad():
+        tokens = shp.place(job["heads_tokens"].to(dev), shp.data_sharding(
+            job["heads_tokens"].shape, mesh))
+        cache, last = make_prefill_step(api, job["s"] + job["steps"])(
+            params, {"tokens": tokens})
+        placements = {n: str(list(cache[n].placements)) for n in ("k", "v")}
+        logits = [_full(last)]
+        for fed in job["heads_fed"]:
+            out, cache = api.decode_step(params, cache, shp.place(
+                fed.to(dev), shp.data_sharding(fed.shape, mesh)))
+            logits.append(_full(out))
+    _sync(dev)
+    return {"logits": logits, "counts": _rank_counts(),
+            "cache": placements}
+
+
+@contextmanager
+def train_config(name: str, cfg):
+    """Within: ``train(name, smoke=False)`` trains ``cfg``."""
+    real = train_module.get_arch
+    train_module.get_arch = lambda arch: cfg if arch == name else real(arch)
+    try:
+        yield
+    finally:
+        train_module.get_arch = real
+
+
+@contextmanager
+def timed_checkpoints(record: dict):
+    """Within: each ``checkpoint.save`` and ``restore`` timed into
+    ``record`` ("save_s", "restore_s"), with the bytes a save gathers
+    whole a rank ("gathered_gb": its DTensor leaves' global sizes) and
+    those staged through host memory while it runs ("staged_gb")."""
+    real_save, real_restore = checkpoint.save, checkpoint.restore
+
+    def save(ckpt_dir, state, step, **kwargs):
+        staged = sum(host_collectives.STAGED_BYTES.values())
+        t0 = time.perf_counter()
+        out = real_save(ckpt_dir, state, step, **kwargs)
+        record["save_s"].append(time.perf_counter() - t0)
+        record["gathered_gb"].append(sum(
+            leaf.numel() * leaf.element_size()
+            for leaf in checkpoint._flatten(state)
+            if shp.is_distributed(leaf)) / 1e9)
+        record["staged_gb"].append(
+            (sum(host_collectives.STAGED_BYTES.values()) - staged) / 1e9)
+        return out
+
+    def restore(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_restore(*args, **kwargs)
+        record["restore_s"].append(time.perf_counter() - t0)
+        return out
+    checkpoint.save, checkpoint.restore = save, restore
+    try:
+        yield
+    finally:
+        checkpoint.save, checkpoint.restore = real_save, real_restore
+
+
+def _sharded_resume(mesh, job: dict) -> dict:
+    """(c'): the bf16 run of 2 x RESUME_AT steps with a checkpoint every
+    RESUME_AT in ``job["ckpt_dir"]``; its last checkpoint removed (by rank
+    0), as if the run had been cut after step RESUME_AT; a resume for
+    RESUME_AT more; what differs between the two, bit for bit."""
+    k = job["resume_at"]
+    cfg = _arch(job, "train_arch", n_layers=job["resume_layers"])
+    kw = dict(batch_size=job["train_b"], seq_len=job["resume_s"],
+              smoke=False, log_every=100, mesh=mesh,
+              param_dtype=torch.bfloat16)
+    record = {"save_s": [], "restore_s": [], "gathered_gb": [],
+              "staged_gb": []}
+    reset_counts()
+    with train_config(job["train_arch"], cfg), timed_checkpoints(record):
+        params, opt, losses = train(job["train_arch"], steps=2 * k,
+                                    ckpt_dir=job["ckpt_dir"], ckpt_every=k,
+                                    **kw)
+        if torch.distributed.get_rank() == 0:
+            for f in Path(job["ckpt_dir"]).glob(f"step_{2 * k:010d}.*"):
+                f.unlink()
+        again, opt2, resumed = train(job["train_arch"], steps=k,
+                                     ckpt_dir=job["ckpt_dir"],
+                                     ckpt_every=10 * k, resume=True, **kw)
+    named = dict(params.named_parameters())
+    return {
+        "losses": losses, "resumed": resumed, "record": record,
+        "steps": (int(opt.step), int(opt2.step)),
+        "differ": [n for n, p in again.named_parameters()
+                   if not torch.equal(_full(p), _full(named[n]))]
+        + [(f, n) for f in ("master", "m", "v")
+           for n, t in getattr(opt2, f).items()
+           if not torch.equal(_full(t), _full(getattr(opt, f)[n]))],
+        "off_mesh": [n for n, p in again.named_parameters()
+                     if not shp.is_distributed(p)],
+        "counts": _rank_counts()}
+
+
+@contextmanager
+def rank_part(out: dict, name: str):
+    """Within: part ``name`` of a rank's run; its host seconds, the
+    collectives it staged and the times ``sharding.split_heads`` or
+    ``merge_heads`` gathered a dimension ("head_gathers") go to
+    ``out["parts"][name]``."""
+    gathers = []
+    real = shp._whole_where_uneven
+
+    def counted(x, dim, n):
+        y = real(x, dim, n)
+        if y is not x:
+            gathers.append(1)
+        return y
+    staged = dict(host_collectives.STAGED)
+    shp._whole_where_uneven = counted
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        shp._whole_where_uneven = real
+        out.setdefault("parts", {})[name] = {
+            "s": time.perf_counter() - t0, "head_gathers": len(gathers),
+            "staged": {k: n - staged.get(k, 0)
+                       for k, n in host_collectives.STAGED.items()
+                       if n > staged.get(k, 0)}}
+
+
 def mesh_ranks(rank: int, world: int, job: dict) -> dict:
-    """Phase 12 (b) and (c) on one rank of the spawned group."""
-    from repro_torch.launch import host_collectives
+    """Phase 12 (b), (b'), (c) and (c') on one rank of the spawned
+    group."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_process_mesh(MESH_SHAPE, ("data", "model"),
                              device=job["device"])
     out = {"backend": torch.distributed.get_backend(),
            "device": str(mesh.devices[rank])}
-    t0 = time.perf_counter()
-    for mode in ("none", "local"):
-        out[mode] = _sharded_serve(mesh, job, mode)
-    out["bf16"] = _sharded_bf16(mesh, job)
-    out["serve_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out["train"] = _sharded_train(mesh, job)
-    out["train_s"] = time.perf_counter() - t0
+    with rank_part(out, "serving"):
+        for mode in ("none", "local"):
+            out[mode] = _sharded_serve(mesh, job, mode)
+        out["bf16"] = _sharded_bf16(mesh, job)
+    with rank_part(out, str(HEADS_SHAPE)):
+        out["heads"] = _sharded_heads(
+            make_process_mesh(HEADS_SHAPE, ("data", "model"),
+                              device=job["device"]), job)
+    with rank_part(out, "training"):
+        out["train"] = _sharded_train(mesh, job)
+    with rank_part(out, "resume"):
+        out["resume"] = _sharded_resume(mesh, job)
     out["staged"] = dict(host_collectives.STAGED)
     out["staged_gb"] = sum(host_collectives.STAGED_BYTES.values()) / 1e9
     return out
@@ -3944,6 +4109,27 @@ def _one_rank_serve(job: dict, mode: str) -> dict:
             "picks": [p.cpu() for p in tape.picks]}
 
 
+def _one_rank_heads(job: dict) -> dict:
+    """The one-rank fp32 run of (b'): HEADS_ARCH cut to its gate depth,
+    seed 0, prefill and greedy decode steps on the kernel path."""
+    dev = torch.device(job["device"])
+    api = get_model(_arch(job, "heads_arch", n_layers=job["gate_layers"]))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = api.init_params(gen, torch.float32, dev)
+    tokens = torch.randint(0, api.cfg.vocab_size, (job["b"], job["s"]),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(3), device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        cache, last = make_prefill_step(api, job["s"] + job["steps"])(
+            params, {"tokens": tokens})
+        logits, fed = [last.cpu()], []
+        for _ in range(job["steps"]):
+            fed.append(_greedy(logits[-1]).cpu())
+            out, cache = api.decode_step(params, cache, fed[-1].to(dev))
+            logits.append(out.cpu())
+    return {"tokens": tokens.cpu(), "fed": fed, "logits": logits}
+
+
 def _one_card_train(job: dict) -> dict:
     """(c)'s one-card fp32 step, train() at the same arguments with no
     mesh, and its float64 witness."""
@@ -3962,16 +4148,20 @@ def mesh_serving_phase(job: dict | None = None) -> dict:
     job = mesh_settings() if job is None else job
     t0 = time.perf_counter()
     one = {mode: _one_rank_serve(job, mode) for mode in ("none", "local")}
+    one_heads = _one_rank_heads(job)
     one_train = _one_card_train(job)
     if job["device"] == "cuda":
         torch.cuda.empty_cache()
     one_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ranks = run_ranks(mesh_ranks, MESH_RANKS, job | {
-        "tokens": one["none"]["tokens"],
-        "fed": {m: one[m]["fed"] for m in one},
-        "picks": {m: one[m]["picks"] for m in one}},
-        device=job["device"], timeout=900)
+    with tempfile.TemporaryDirectory(prefix="mesh-ckpt-") as ckpt_dir:
+        ranks = run_ranks(mesh_ranks, MESH_RANKS, job | {
+            "tokens": one["none"]["tokens"],
+            "fed": {m: one[m]["fed"] for m in one},
+            "picks": {m: one[m]["picks"] for m in one},
+            "heads_tokens": one_heads["tokens"],
+            "heads_fed": one_heads["fed"], "ckpt_dir": ckpt_dir},
+            device=job["device"], timeout=900)
     spawn_s = time.perf_counter() - t0
     head = ranks[0]
     layers_ = job["gate_layers"]
@@ -4017,6 +4207,36 @@ def mesh_serving_phase(job: dict | None = None) -> dict:
                   f"decode {2 * full_layers * steps} launches; peak "
                   f"memory a rank " + ", ".join(f"{b['peak_gb']:.2f}"
                                                 for b in bf16) + " GB")
+    heads_layers = job["gate_layers"]
+    heads_full = _arch(job, "heads_arch").n_layers
+    phase("mesh", f"{job['heads_arch']} at full width, fp32, on the same "
+                  f"{MESH_RANKS} ranks as a {HEADS_SHAPE} mesh: its "
+                  f"{_arch(job, 'heads_arch').n_kv_heads} KV heads do not "
+                  f"split over \"model\" ({HEADS_SHAPE[1]}); depth cut to "
+                  f"{heads_layers} of its {heads_full} layers, as "
+                  f"SHARD_GATE_LAYERS cuts olmoe-1b-7b's")
+    got = head["heads"]
+    worst = max(_lm_gate(f"sharded {HEADS_SHAPE} "
+                         f"{'prefill' if i == 0 else i}", g, w, SHARD_TOL)
+                for i, (g, w) in enumerate(zip(got["logits"],
+                                               one_heads["logits"])))
+    for r in ranks:
+        c = r["heads"]["counts"]
+        if on_card and (c["flash_attention"][0] != heads_layers or c[
+                "decode_attention"][0] != heads_layers * steps or c[
+                "ssd_scan"][0]):
+            raise AssertionError(f"sharded {HEADS_SHAPE}: launches {c}")
+        if any("Replicate(), Replicate()" not in p
+               for p in r["heads"]["cache"].values()):
+            raise AssertionError(f"sharded {HEADS_SHAPE}: the KV cache split "
+                                 f"its heads: {r['heads']['cache']}")
+    phase("mesh", f"{job['heads_arch']} {heads_layers} layers fp32 on "
+                  f"{MESH_RANKS} ranks {HEADS_SHAPE}: prefill {job['b']} x "
+                  f"{job['s']} and {steps} decode steps within {worst:.3g} "
+                  f"x max |logits| of the one-rank run (gate {SHARD_TOL}), "
+                  f"the same greedy tokens; the KV cache whole on "
+                  f"\"model\" ({got['cache']['k']}); per rank flash "
+                  f"{heads_layers} + decode {heads_layers * steps} launches")
     tr = head["train"]
 
     def rel_loss(a: float, b: float) -> float:
@@ -4069,11 +4289,59 @@ def mesh_serving_phase(job: dict | None = None) -> dict:
                   + " ".join(f"{x:.4f}" for x in tr["bf16_losses"])
                   + f"; ssd_scan {n_ssd} launches a step per rank; peak "
                   f"memory a rank {tr['peak_gb']:.2f} GB")
+    rs = head["resume"]
+    k = job["resume_at"]
+    n_resume = job["resume_layers"] * (
+        2 if _arch(job, "train_arch").remat else 1)
+    if rs["steps"] != (2 * k, 2 * k) or rs["resumed"] != rs["losses"][k:] \
+            or rs["differ"] or rs["off_mesh"]:
+        raise AssertionError(f"sharded resume: steps {rs['steps']}, losses "
+                             f"{rs['losses']} resumed {rs['resumed']}, "
+                             f"differ {rs['differ'][:8]}, off the mesh "
+                             f"{rs['off_mesh'][:8]}")
+    for r in ranks:
+        c = r["resume"]["counts"]
+        if on_card and c["ssd_scan"][0] != n_resume * 3 * k:
+            raise AssertionError(f"sharded resume: launches {c}")
+    rec = rs["record"]
+    phase("mesh", f"{job['train_arch']} at full width cut to "
+                  f"{job['resume_layers']} layers, bf16 train() on "
+                  f"{MESH_RANKS} ranks {MESH_SHAPE}, B {job['train_b']} x "
+                  f"S {job['resume_s']}: a {2 * k}-step run checkpointed at "
+                  f"steps {k} and {2 * k}, cut back to step {k} and "
+                  f"resumed for {k} more, repeats its steps {k + 1}-{2 * k} "
+                  f"bit for bit (losses "
+                  + " ".join(f"{x:.6f}" for x in rs["losses"])
+                  + f"; parameters, AdamW master, m and v); per rank "
+                  f"ssd_scan {n_resume} launches a step")
+    phase("mesh", f"checkpoint under the mesh, rank 0: save "
+                  + ", ".join(f"{x:.2f}" for x in rec["save_s"])
+                  + " s (gather and host copy; rank 0's write async), "
+                  f"gathering {rec['gathered_gb'][0]:.3f} GB a rank whole "
+                  f"(staged through host memory: "
+                  + ", ".join(f"{x:.3f}" for x in rec["staged_gb"])
+                  + " GB), restore "
+                  + ", ".join(f"{x:.2f}" for x in rec["restore_s"])
+                  + f" s (host clock); on {CARD['smi']}")
+    # the head split gathers only where "model" does not divide the heads:
+    # never on MESH_SHAPE, where every head count divides it
+    for r in ranks:
+        gathers = {name: part["head_gathers"]
+                   for name, part in r["parts"].items()}
+        if any(n for name, n in gathers.items() if name != str(HEADS_SHAPE)
+               ) or not gathers[str(HEADS_SHAPE)]:
+            raise AssertionError(f"head gathers by part: {gathers}")
+    parts = head["parts"]
     phase("mesh", f"one-rank runs {one_s:.1f} s, the spawn {spawn_s:.1f} s "
-                  f"(serving {head['serve_s']:.1f} s, training "
-                  f"{head['train_s']:.1f} s); collectives staged through "
-                  f"host memory on rank 0: {head['staged']} "
-                  f"({head['staged_gb']:.2f} GB copied); on {CARD['smi']}")
+                  "(" + ", ".join(f"{name} {part['s']:.1f} s"
+                                  for name, part in parts.items())
+                  + "); collectives staged through host memory on rank 0 "
+                  "by part: " + "; ".join(f"{name} {part['staged']}"
+                                          for name, part in parts.items())
+                  + f" ({head['staged_gb']:.2f} GB copied in all); the "
+                  f"head split gathered {parts[str(HEADS_SHAPE)]['head_gathers']} "
+                  f"times on {HEADS_SHAPE}, never on {MESH_SHAPE}; on "
+                  f"{CARD['smi']}")
 
     def total(kernel, part):
         return sum(r[part]["counts"][kernel][0] for r in ranks)
@@ -4090,16 +4358,23 @@ def mesh_serving_phase(job: dict | None = None) -> dict:
             f"sharded {job['arch']} ({MESH_RANKS} ranks)": {
                 k: sum(total(k, p) for p in ("none", "local", "bf16"))
                 for k in ("flash_attention", "decode_attention")},
+            f"sharded {job['heads_arch']} {HEADS_SHAPE} ({MESH_RANKS} "
+            f"ranks)": {k: total(k, "heads")
+                        for k in ("flash_attention", "decode_attention")},
             f"sharded train {job['train_arch']} ({MESH_RANKS} ranks)": {
                 "ssd_scan": sum(r["train"]["fp32_counts"]["ssd_scan"][0]
                                 + r["train"]["bf16_counts"]["ssd_scan"][0]
-                                for r in ranks)}},
+                                for r in ranks)},
+            f"sharded resume {job['train_arch']} ({MESH_RANKS} ranks)": {
+                "ssd_scan": total("ssd_scan", "resume")}},
         "by_dtype": {
-            k: by_dtype(k, ("none", "local", "bf16"))
+            k: by_dtype(k, ("none", "local", "bf16", "heads"))
             for k in ("flash_attention", "decode_attention")} | {
             "ssd_scan": {dt: sum(r["train"][part]["ssd_scan"][1].get(dt, 0)
                                  for r in ranks
                                  for part in ("fp32_counts", "bf16_counts"))
+                         + sum(r["resume"]["counts"]["ssd_scan"][1].get(dt, 0)
+                               for r in ranks)
                          for dt in ("float32", "bfloat16")}}}
 
 

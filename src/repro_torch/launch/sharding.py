@@ -296,6 +296,50 @@ def write_cache(cache: dict, name: str, index, x: torch.Tensor,
         dst[at] = x
 
 
+def _whole_where_uneven(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """DTensor ``x`` with dimension ``dim`` gathered (``Replicate()``) on
+    the mesh dimensions that shard it, where together they do not divide
+    ``n``; its other placements kept.  ``x`` itself where they divide
+    ``n`` or nothing shards ``dim``: no collective."""
+    from torch.distributed.tensor import Replicate, Shard
+    place = list(x.placements)
+    on = [i for i, p in enumerate(place)
+          if isinstance(p, Shard) and p.dim == dim]
+    if not on or n % math.prod(x.device_mesh.size(i) for i in on) == 0:
+        return x
+    for i in on:
+        place[i] = Replicate()
+    return x.redistribute(x.device_mesh, place)
+
+
+def split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """``x.reshape(*x.shape[:-1], n, d)``: a projection's last dimension
+    split into ``n`` heads of ``d``.  DTensor cannot unflatten a dimension
+    sharded over mesh axes that do not divide ``n`` (XLA's partitioner
+    can), so under a mesh over a process group that dimension is gathered
+    first; where the axes divide ``n`` the heads come out sharded over
+    them, as the reshape gives them, and nothing moves."""
+    if is_distributed(x):
+        x = _whole_where_uneven(x, x.dim() - 1, n)
+    return x.reshape(*x.shape[:-1], n, d)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., n, d) as (..., n·d), the inverse of ``split_heads``.
+    On a DTensor the gradient of the merge is a split of heads, so it
+    passes through ``split_heads``' rule (a gradient sharded over axes
+    that do not divide ``n`` is gathered before it is unflattened); the
+    heads are gathered first where axes that do not divide ``n`` shard
+    them."""
+    n, d = x.shape[-2:]
+    if not is_distributed(x):
+        return x.reshape(*x.shape[:-2], n * d)
+    y = _whole_where_uneven(x, x.dim() - 2, n).reshape(*x.shape[:-2], n * d)
+    if y.requires_grad:
+        y.register_hook(lambda g: _whole_where_uneven(g, g.dim() - 1, n))
+    return y
+
+
 def sum_of_squares(t: torch.Tensor) -> torch.Tensor:
     """The sum of ``t``'s squared elements (``vdot`` of it flattened); of a
     DTensor, each rank's ``vdot`` of its shard summed over the shards, a
@@ -335,13 +379,25 @@ def place(x: torch.Tensor, sharding: NamedSharding):
     """A tensor that every rank holds in full, placed by ``sharding``
     (each rank keeps a copy of its own shard, on the mesh's device: no
     data moves between ranks)."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
     mesh = sharding.mesh
     if getattr(mesh, "device_mesh", None) is None:
         return with_sharding_constraint(x, sharding)
-    out = distribute_tensor(x, mesh.device_mesh,
-                            placements(sharding.spec, mesh, x.dim()),
-                            src_data_rank=None)
+    return _own_chunk(x, mesh.device_mesh,
+                      placements(sharding.spec, mesh, x.dim()))
+
+
+def place_as(x: torch.Tensor, like) -> torch.Tensor:
+    """A tensor that every rank holds in full, placed as the DTensor
+    ``like`` is (its mesh and placements; each rank keeps its own chunk,
+    no data moves).  ``x`` itself where ``like`` is a plain tensor."""
+    if not is_distributed(like):
+        return x
+    return _own_chunk(x, like.device_mesh, like.placements)
+
+
+def _own_chunk(x: torch.Tensor, device_mesh, place):
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    out = distribute_tensor(x, device_mesh, place, src_data_rank=None)
     local = out.to_local()
     if local.untyped_storage().nbytes() > local.nbytes:
         # a shard is a view of the whole tensor: copied, so that the whole

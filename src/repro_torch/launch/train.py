@@ -22,9 +22,11 @@ and the run is the same, bit for bit, as without a mesh.  On a mesh over
 a process group (``mesh.make_process_mesh``, in every rank) the
 parameters, drawn alike on every rank, are placed by
 ``sharding.param_shardings``; every rank draws the same token stream, as
-the reference's single program does, and takes its data shard.
-Checkpoints under such a mesh are not ported.  As in the reference, the
-CLI has no mesh flag (its docstring names one, ROADMAP C-R35).
+the reference's single program does, and takes its data shard.  Its
+checkpoints are the one-card files (``serving.checkpoint``: each sharded
+leaf gathered whole, rank 0 writes), so either layout resumes the
+other's.  As in the reference, the CLI has no mesh flag (its docstring
+names one, ROADMAP C-R35).
 """
 
 from __future__ import annotations
@@ -108,9 +110,6 @@ def train(arch: str, steps: int = 50, batch_size: int = 8, seq_len: int = 64,
     elif device is not None:
         raise ValueError("train: pass a device or a mesh, not both")
     elif placed:
-        if ckpt_dir:
-            raise NotImplementedError("train: checkpoints under a mesh over "
-                                      "a process group are not ported")
         dev = mesh.devices[torch.distributed.get_rank()]
     else:
         dev = mesh.devices[0]
@@ -159,9 +158,11 @@ def train(arch: str, steps: int = 50, batch_size: int = 8, seq_len: int = 64,
                           f"({dt / log_every:.2f}s/step)")
                     t0 = time.time()
                 if ckpt_dir and (step + 1) % ckpt_every == 0:
-                    pending.append(checkpoint.save(
+                    writer = checkpoint.save(
                         ckpt_dir, train_state(cfg, params, opt_state),
-                        step=step + 1, async_write=True))
+                        step=step + 1, async_write=True)
+                    if writer is not None:      # rank 0's, under a mesh
+                        pending.append(writer)
     finally:
         pipe.close()
         for writer in pending:

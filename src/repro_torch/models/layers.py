@@ -193,13 +193,12 @@ def init_gqa_params(generator: torch.Generator, cfg, dtype,
 def gqa_project_qkv(params, x: torch.Tensor, cfg, positions: torch.Tensor):
     """Project, split heads, rotate.  x (B, S, D) → q (B, S, H, hd),
     k/v (B, S, KH, hd); positions (S,) or (B, S)."""
-    b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q, k, v = (constrain(dense(x, params["w" + n], params.get("b" + n)),
-                         "batch", None, "model") for n in "qkv")
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv, hd)
-    v = v.reshape(b, s, kv, hd)
+    hd = cfg.d_head
+    q, k, v = (shp.split_heads(
+        constrain(dense(x, params["w" + n], params.get("b" + n)),
+                  "batch", None, "model"), heads, hd)
+        for n, heads in zip("qkv", (cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.n_kv_heads)))
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
@@ -212,9 +211,8 @@ def gqa_attention(params, x: torch.Tensor, cfg, positions: torch.Tensor,
     q, k, v = gqa_project_qkv(params, x, cfg, positions)
     out = attention_full(q, k, v, positions, cfg.sliding_window,
                          cfg.d_head ** -0.5, use_kernel=use_kernel)
-    b, s = x.shape[:2]
-    out = out.reshape(b, s, cfg.n_heads * cfg.d_head)
-    return dense(constrain(out, "batch", None, "model"), params["wo"])
+    return dense(constrain(shp.merge_heads(out), "batch", None, "model"),
+                 params["wo"])
 
 
 # --------------------------------------------------------------------------
@@ -255,9 +253,8 @@ def mla_latents(params, x: torch.Tensor, cfg, positions: torch.Tensor):
 
 def mla_queries(params, c_q: torch.Tensor, cfg, positions: torch.Tensor):
     """q_nope (B, S, H, nd) and the rotated q_rope (B, S, H, rd)."""
-    b, s, _ = c_q.shape
     h, nd, rd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = dense(c_q, params["wuq"]).reshape(b, s, h, nd + rd)
+    q = shp.split_heads(dense(c_q, params["wuq"]), h, nd + rd)
     cos, sin = rope_cos_sin(positions, rd, cfg.rope_theta)
     return q[..., :nd], apply_rope(q[..., nd:], cos, sin)
 
@@ -279,8 +276,8 @@ def mla_prefill(params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
         cfg.v_head_dim
     c_q, c_kv, k_rope = mla_latents(params, x, cfg, positions)
     q_nope, q_rope = mla_queries(params, c_q, cfg, positions)
-    k_nope = dense(c_kv, params["wuk"]).reshape(b, s, h, nd)
-    v = dense(c_kv, params["wuv"]).reshape(b, s, h, vd)
+    k_nope = shp.split_heads(dense(c_kv, params["wuk"]), h, nd)
+    v = shp.split_heads(dense(c_kv, params["wuv"]), h, vd)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rd)], dim=-1)
     scale = (nd + rd) ** -0.5
@@ -289,7 +286,7 @@ def mla_prefill(params, x: torch.Tensor, cfg, positions: torch.Tensor, *,
         q, k, v = (F.pad(t, (0, width - t.shape[-1])) for t in (q, k, v))
     out = attention_full(q, k, v, positions, 0, scale,
                          use_kernel=use_kernel)[..., :vd]
-    return dense(out.reshape(b, s, h * vd), params["wo"]), c_kv, k_rope
+    return dense(shp.merge_heads(out), params["wo"]), c_kv, k_rope
 
 
 def mla_decode_absorbed(params, c_q: torch.Tensor, cfg,
@@ -309,11 +306,10 @@ def mla_decode_absorbed(params, c_q: torch.Tensor, cfg,
     into the cache, then calls this; the reference's form takes x and
     computes them again); cache_ckv (B, T, r); cache_krope (B, T, rd);
     valid (T,) bool; pos (B, 1) → (B, 1, D)."""
-    b = c_q.shape[0]
-    h, nd, rd, vd, r = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
-                        cfg.v_head_dim, cfg.kv_lora_rank)
+    h, nd, rd, vd = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
     q_nope, q_rope = mla_queries(params, c_q, cfg, pos)
-    wuk = params["wuk"].reshape(r, h, nd)
+    wuk = shp.split_heads(params["wuk"], h, nd)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], wuk.to(q_nope.dtype))
     scores = (torch.einsum("bhr,btr->bht", q_lat, cache_ckv)
               + torch.einsum("bhd,btd->bht", q_rope[:, 0], cache_krope))
@@ -321,9 +317,9 @@ def mla_decode_absorbed(params, c_q: torch.Tensor, cfg,
     scores = torch.where(valid[None, None, :], scores, MASKED)
     probs = torch.softmax(scores, dim=-1).to(c_q.dtype)
     lat = torch.einsum("bht,btr->bhr", probs, cache_ckv)
-    wuv = params["wuv"].reshape(r, h, vd)
+    wuv = shp.split_heads(params["wuv"], h, vd)
     out = torch.einsum("bhr,rhd->bhd", lat, wuv.to(lat.dtype))
-    return dense(out.reshape(b, 1, h * vd), params["wo"])
+    return dense(shp.merge_heads(out[:, None]), params["wo"])
 
 
 # --------------------------------------------------------------------------

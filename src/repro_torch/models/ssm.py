@@ -87,10 +87,10 @@ def _heads(cfg, xbc: torch.Tensor):
     """Split the conv output (..., conv_dim) into x (..., H, P) and b, c
     (..., G, N): views, not copies."""
     d_in, g, n = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state
-    lead = xbc.shape[:-1]
-    return (xbc[..., :d_in].reshape(*lead, cfg.ssm_nheads, cfg.ssm_headdim),
-            xbc[..., d_in:d_in + g * n].reshape(*lead, g, n),
-            xbc[..., d_in + g * n:].reshape(*lead, g, n))
+    return (shp.split_heads(xbc[..., :d_in], cfg.ssm_nheads,
+                            cfg.ssm_headdim),
+            shp.split_heads(xbc[..., d_in:d_in + g * n], g, n),
+            shp.split_heads(xbc[..., d_in + g * n:], g, n))
 
 
 def segsum(x: torch.Tensor) -> torch.Tensor:
@@ -185,8 +185,7 @@ def ssm_forward(params, x: torch.Tensor, cfg, *, use_kernel: bool = True):
             (heads, (bat, mod, None, None)))
     else:
         y, state = ssd_chunked(x_in, dt, params["A_log"], b, c, chunk)
-    y = y + params["D"].to(x.dtype)[:, None] * x_in
-    y = y.reshape(bsz, slen, cfg.d_inner)
+    y = shp.merge_heads(y + params["D"].to(x.dtype)[:, None] * x_in)
     y = rmsnorm(y * F.silu(z), params["ssm_norm"], cfg.norm_eps)
     return constrain(dense(y, params["out_proj"]), "batch", None, None), \
         {"state": state, "conv": new_conv}
@@ -197,7 +196,6 @@ def ssm_decode_step(params, x: torch.Tensor, cfg, carry: dict):
     (B, H, P, N) float32, "conv" (B, K-1, conv_dim)}, a cache layer, both
     overwritten in place (the conv carry is read in x's type, as the
     reference casts it).  Returns (out (B, 1, D), carry)."""
-    bsz = x.shape[0]
     state, conv = carry["state"], carry["conv"]
     z, xbc, dt = _split_proj(cfg, dense(x, params["in_proj"]))
     xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"],
@@ -213,7 +211,7 @@ def ssm_decode_step(params, x: torch.Tensor, cfg, carry: dict):
     state.mul_(decay[..., None, None]).add_(
         x32[..., None] * bh[:, :, None, :] * dt[..., None, None])
     y = torch.einsum("bhpn,bhn->bhp", state, ch)
-    y = y + params["D"][:, None] * x32
-    y = y.reshape(bsz, 1, cfg.d_inner).to(x.dtype)
+    y = shp.merge_heads((y + params["D"][:, None] * x32)[:, None]) \
+        .to(x.dtype)
     y = rmsnorm(y * F.silu(z), params["ssm_norm"], cfg.norm_eps)
     return dense(y, params["out_proj"]), carry

@@ -263,12 +263,11 @@ def _attn_prefill(cfg, attn, hn: torch.Tensor, cache: dict, layer: int,
     0 .. S-1, through the flash-attention kernel (or the reference's math
     with ``use_kernel=False``); writes its keys and values into ring layer
     ``layer`` of the cache."""
-    b, s, _ = hn.shape
     q, k, v = gqa_project_qkv(attn, hn, cfg, positions)
     out = attention_full(q, k, v, positions, cfg.sliding_window,
                          cfg.d_head ** -0.5, use_kernel=use_kernel)
     _ring_scatter(cache, layer, {"k": k, "v": v}, positions)
-    return dense(out.reshape(b, s, cfg.n_heads * cfg.d_head), attn["wo"])
+    return dense(shp.merge_heads(out), attn["wo"])
 
 
 def _advance_ring(cache: dict) -> int:
@@ -314,7 +313,7 @@ def _attn_decode(cfg, attn, hn: torch.Tensor, cache: dict, layer: int,
     v_l = _write_kv(cache, "v", layer, slot, v_new)
     out = _decode_core(q, k_l, v_l, cache["pos"], cfg.d_head ** -0.5,
                        use_kernel)
-    return dense(out.reshape(b, 1, cfg.n_heads * cfg.d_head), attn["wo"])
+    return dense(shp.merge_heads(out), attn["wo"])
 
 
 def _decode_core(q, k_l, v_l, pos: torch.Tensor, scale: float,
@@ -733,13 +732,11 @@ def make_encdec_lm(cfg: ArchConfig) -> ModelApi:
 
     def enc_block(layer: Layer, h: torch.Tensor, positions: torch.Tensor,
                   use_kernel: bool):
-        b, t, _ = h.shape
         hn = layernorm(h, layer.norm1_w, layer.norm1_b, eps)
         q, k, v = gqa_project_qkv(layer.attn, hn, cfg, positions)
         out = attention_full(q, k, v, positions, 0, scale, causal=False,
                              use_kernel=use_kernel)
-        h = h + dense(out.reshape(b, t, cfg.n_heads * cfg.d_head),
-                      layer.attn["wo"])
+        h = h + dense(shp.merge_heads(out), layer.attn["wo"])
         hn = layernorm(h, layer.norm2_w, layer.norm2_b, eps)
         return h + gelu_mlp(layer.mlp, hn)
 
@@ -753,22 +750,18 @@ def make_encdec_lm(cfg: ArchConfig) -> ModelApi:
         return h
 
     def _cross_kv(layer: Layer, enc_h: torch.Tensor):
-        b, t, _ = enc_h.shape
         p = layer.xattn
-        shape = (b, t, cfg.n_kv_heads, cfg.d_head)
-        return (dense(enc_h, p["wk"], p.get("bk")).reshape(shape),
-                dense(enc_h, p["wv"], p.get("bv")).reshape(shape))
+        return tuple(shp.split_heads(dense(enc_h, p["w" + n], p.get("b" + n)),
+                                     cfg.n_kv_heads, cfg.d_head)
+                     for n in "kv")
 
     def _cross_q(layer: Layer, hn: torch.Tensor) -> torch.Tensor:
-        b, s, _ = hn.shape
         p = layer.xattn
-        return dense(hn, p["wq"], p.get("bq")).reshape(b, s, cfg.n_heads,
-                                                       cfg.d_head)
+        return shp.split_heads(dense(hn, p["wq"], p.get("bq")), cfg.n_heads,
+                               cfg.d_head)
 
     def _cross_out(layer: Layer, out: torch.Tensor) -> torch.Tensor:
-        b, s = out.shape[:2]
-        return dense(out.reshape(b, s, cfg.n_heads * cfg.d_head),
-                     layer.xattn["wo"])
+        return dense(shp.merge_heads(out), layer.xattn["wo"])
 
     def _cross_full(layer, hn, enc_k, enc_v, use_kernel=True):
         """Every query of hn (B, S, D) over every encoder frame: flash

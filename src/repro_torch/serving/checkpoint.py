@@ -15,6 +15,17 @@ float32 checkpoint written by either package restores in the other.  A
 bf16 tensor is written as the 2-byte ``|V2`` payload the reference writes
 for a bf16 array; ``restore`` reads it back by the dtype of ``state_like``
 (the reference hands it back as a void array, ROADMAP C-R33).
+
+Under a mesh over a process group (a state whose leaves include DTensors)
+the files are the same: ``save`` gathers each DTensor leaf whole on every
+rank (``full_tensor``, a collective that every rank calls in the same
+order), as the reference brings each sharded leaf to the host
+(``np.asarray(jax.device_get(leaf))``), and rank 0 alone writes.
+``restore`` first waits at a barrier, so that no rank reads before rank
+0 has joined its writes (``launch.train`` joins its async writes before
+it returns); then every rank reads the whole file and keeps, of each
+leaf whose ``state_like`` is a DTensor, its own chunk, placed as that
+DTensor is (no data moves).
 """
 
 from __future__ import annotations
@@ -25,6 +36,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from ..launch.sharding import is_distributed, place_as
 
 
 def _is_namedtuple(x) -> bool:
@@ -85,8 +98,9 @@ def _to_host(leaf) -> np.ndarray:
 
 def _to_like(arr: np.ndarray, like, where: str):
     """A tensor leaf comes back as a tensor of ``like``'s dtype on its
-    device (a ``|V2`` payload read as bf16); any other leaf as the numpy
-    array, as the reference returns it."""
+    device (a ``|V2`` payload read as bf16), placed as ``like`` where it
+    is a DTensor; any other leaf as the numpy array, as the reference
+    returns it."""
     if not isinstance(like, torch.Tensor):
         return arr
     if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
@@ -96,17 +110,30 @@ def _to_like(arr: np.ndarray, like, where: str):
     if t.dtype != like.dtype:
         raise ValueError(f"checkpoint leaf dtype {t.dtype} != expected "
                          f"{like.dtype} ({where})")
-    return t.to(like.device)
+    return place_as(t.to(like.device), like)
 
 
 def save(ckpt_dir, state, step: int, keep: int = 3,
          async_write: bool = False):
     """Write checkpoint ``step``.  The leaves are copied to the host before
     this returns.  Returns the final path, or the writing thread when
-    ``async_write=True`` (join it to guarantee durability)."""
+    ``async_write=True`` (join it to guarantee durability).  Under a mesh
+    over a process group every rank must call it; each DTensor leaf is
+    gathered whole, and rank 0 writes while every other rank writes
+    nothing and returns None."""
+    leaves = _flatten(state)
+    writes = not any(map(is_distributed, leaves)) or \
+        torch.distributed.get_rank() == 0
+    host_leaves = []
+    for leaf in leaves:
+        if is_distributed(leaf):
+            leaf = leaf.full_tensor()
+        if writes:
+            host_leaves.append(_to_host(leaf))
+    if not writes:
+        return None
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    host_leaves = [_to_host(leaf) for leaf in _flatten(state)]
     treedef = _structure(state)
 
     def _write():
@@ -152,15 +179,19 @@ def latest_step(ckpt_dir) -> int | None:
 
 def restore(ckpt_dir, state_like, step: int | None = None):
     """Restore into the structure of ``state_like`` (shapes must match, and
-    a tensor leaf's dtype).  Returns (state, step) or (None, None) when no
-    checkpoint exists."""
+    a tensor leaf's dtype; a DTensor leaf comes back placed as it is).
+    Returns (state, step) or (None, None) when no checkpoint exists.
+    Under a mesh over a process group every rank must call it, rank 0
+    after joining its async writes."""
+    leaves = _flatten(state_like)
+    if any(map(is_distributed, leaves)):
+        torch.distributed.barrier()
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             return None, None
     path = ckpt_dir / f"step_{step:010d}.npz"
-    leaves = _flatten(state_like)
     with np.load(path, allow_pickle=False) as payload:
         restored = [payload[f"leaf_{i}"] for i in range(len(leaves))]
     out = []

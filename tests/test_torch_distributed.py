@@ -28,10 +28,19 @@ Tolerances:
   rounding of 0 can move by 2 lr either way: no bound relative to max |p|
   holds element by element);
 * ``make_train_step(grad_shardings=)``: each gradient placed by its spec,
-  its AdamW first moment within 1e-5 x max |m| of the unsharded step's.
+  its AdamW first moment within 1e-5 x max |m| of the unsharded step's;
+* checkpoints under the mesh (``train(mesh=, ckpt_dir=)``, reduced
+  mamba2-130m, fp32 and bf16): bit for bit.  The files of a sharded run
+  equal its ranks' tensors gathered; 2 steps, a checkpoint and a resume
+  for 2 more repeat the uninterrupted 4-step run (losses, parameters,
+  AdamW state), every restored leaf placed as ``param_shardings`` places
+  it; a one-card checkpoint resumes under the mesh and a mesh checkpoint
+  on one card; rank 0 alone writes, keeping the last 3; a float32 mesh
+  checkpoint restores in the reference's ``checkpoint.restore``.
 """
 
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -44,12 +53,14 @@ import torch_dist_ranks as ranks  # noqa: E402
 from repro.configs import ARCHS as REF_ARCHS  # noqa: E402
 from repro.models.layers import moe_layer as ref_moe_layer  # noqa: E402
 from repro.models.transformer import get_model as ref_get_model  # noqa: E402
+from repro.optim import adamw as ref_adamw  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.data import SyntheticTokens  # noqa: E402
 from repro_torch.launch.mesh import run_ranks  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
-from repro_torch.models.transformer import get_model, make_trainable  # noqa: E402
+from repro_torch.models.transformer import (get_model, lm_untree,  # noqa: E402
+                                            make_trainable)
 from repro_torch.optim import adamw  # noqa: E402
 
 WORLD = 4
@@ -109,14 +120,25 @@ def _ref_moe(arrays: dict, cfg, shards: int = 1):
                          for n in ("w1", "w3", "w2")}}}
 
 
-def _ref_lm(arch: str, seed: int) -> tuple:
-    """(payload case, reference logits, reference greedy tokens)."""
-    ref = ref_get_model(REF_ARCHS[arch].reduced())
+def _ref_lm(arch: str, seed: int, replace: dict | None = None) -> tuple:
+    """(payload case, reference logits, reference greedy tokens) of
+    ``arch``'s ``reduced()`` configuration with the fields of ``replace``
+    on top; an encoder-decoder's frames drawn from the seed too."""
+    replace = replace or {}
+    ref = ref_get_model(dataclasses.replace(REF_ARCHS[arch].reduced(),
+                                            **replace))
     params = ref.init_params(jax.random.PRNGKey(0), jnp.float32)
-    tokens = np.random.default_rng(seed).integers(
-        0, ref.cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, ref.cfg.vocab_size,
+                          (BATCH, PROMPT)).astype(np.int32)
+    extra = None
+    if ref.cfg.family == "encdec":
+        extra = rng.standard_normal(
+            (BATCH, ref.cfg.encoder_seq, ref.cfg.d_model)).astype(
+                np.float32) * 0.5
     max_len = PROMPT + STEPS
-    cache, last = ref.prefill(params, jnp.asarray(tokens), max_len)
+    cache, last = ref.prefill(params, jnp.asarray(tokens), max_len,
+                              None if extra is None else jnp.asarray(extra))
     logits = [np.asarray(last)]
     greedy = [np.asarray(jnp.argmax(last[:, -1], -1).astype(jnp.int32))
               [:, None]]
@@ -126,14 +148,110 @@ def _ref_lm(arch: str, seed: int) -> tuple:
         greedy.append(np.asarray(jnp.argmax(step[:, -1], -1)
                                  .astype(jnp.int32))[:, None])
     case = {"arch": arch, "params": jax.tree.map(np.asarray, params),
-            "tokens": tokens, "max_len": max_len, "fed": greedy[:STEPS]}
+            "tokens": tokens, "extra": extra, "max_len": max_len,
+            "fed": greedy[:STEPS], "replace": replace}
     return case, logits, greedy
 
 
+def ckpt_payload(root: Path, replace: dict | None = None) -> dict:
+    """The checkpoint checks' payload: a directory for the ranks' files,
+    and in it the one-card checkpoint of each type (``train()`` on the CPU,
+    2 steps, a checkpoint at step 2) that the ranks resume under the
+    mesh."""
+    one_card = {}
+    for dtype in ranks.DTYPES:
+        one_card[dtype] = str(root / "one-card" / dtype)
+        with ranks.reduced_arch("mamba2-130m", replace):
+            train("mamba2-130m", steps=2, ckpt_dir=one_card[dtype],
+                  ckpt_every=2, log_every=100, device="cpu",
+                  param_dtype=ranks.DTYPES[dtype], **ranks.TRAIN)
+    return {"dir": str(root), "one_card": one_card, "replace": replace}
+
+
 @pytest.fixture(scope="module")
-def spawned():
+def ref_ckpt():
+    """The reference's ``repro.serving.checkpoint``, imported with the
+    ``enable_x64`` alias its package needs on jax 0.9."""
+    with pytest.MonkeyPatch.context() as mp:
+        if not hasattr(jax.experimental, "enable_x64"):
+            mp.setattr(jax.experimental, "enable_x64", jax.enable_x64,
+                       raising=False)
+        from repro.serving import checkpoint as ref
+    return ref
+
+
+def check_files_equal_the_gathered_tensors(got: dict) -> None:
+    """(a) and (d): the step-4 file of the run that checkpoints every step
+    equals its ranks' tensors gathered, leaf for leaf and bit for bit;
+    rank 0 made all six writes (four there, two in the resumed run's
+    directory) and no other rank any; the last three are kept."""
+    assert got["differ_files"]["every"] == []
+    assert got["writes"] == [6, 0, 0, 0]
+    assert got["kept"] == [f"step_{s:010d}.{x}" for s in (2, 3, 4)
+                           for x in ("json", "npz")]
+
+
+def check_resume_repeats_the_run(got: dict) -> None:
+    """(b): 2 steps, a checkpoint, then 2 more after a resume repeat the
+    uninterrupted 4-step run bit for bit (losses, parameters, master, m,
+    v), every restored leaf placed as its parameter; the step counter is
+    a plain tensor."""
+    assert got["steps"] == (4, 4, 2)
+    assert len(got["losses"]) == 4
+    assert got["resumed_losses"] == got["losses"][2:]
+    assert got["differ_params"] == [] and got["differ_opt"] == []
+    assert got["off_mesh"]["resumed"] == []
+
+
+def check_one_card_checkpoint_resumes_under_the_mesh(got: dict) -> None:
+    """(c): a one-card checkpoint restored under the mesh: its placed
+    leaves equal the file, placed by ``param_shardings``."""
+    assert got["differ_files"]["one_card"] == []
+    assert got["off_mesh"]["one_card"] == []
+
+
+def check_mesh_checkpoint_resumes_on_one_card(got: dict, root: Path,
+                                              dtype: str,
+                                              replace: dict | None) -> None:
+    """(c): the resumed sharded run's step-4 checkpoint restored by
+    ``train(resume=True)`` on one card equals the ranks' parameters."""
+    with ranks.reduced_arch("mamba2-130m", replace):
+        params, opt, _ = train("mamba2-130m", steps=0, resume=True,
+                               ckpt_dir=str(root / dtype / "resume"),
+                               device="cpu", param_dtype=ranks.DTYPES[dtype],
+                               **ranks.TRAIN)
+    assert int(opt.step) == 4
+    for name, p in params.named_parameters():
+        np.testing.assert_array_equal(p.detach().float().numpy(),
+                                      got["params"][name], err_msg=name)
+
+
+def check_restores_in_the_reference(got: dict, ref_ckpt, root: Path,
+                                    replace: dict | None) -> None:
+    """(e): the float32 mesh checkpoint restores in the reference's
+    ``checkpoint.restore`` into its own train state, with the same leaf
+    count and shapes, the parameters the ranks' own."""
+    cfg = dataclasses.replace(REF_ARCHS["mamba2-130m"].reduced(),
+                              **(replace or {}))
+    params = ref_get_model(cfg).init_params(jax.random.PRNGKey(0),
+                                            jnp.float32)
+    like = {"params": params, "opt": ref_adamw.init(params)}
+    back, step = ref_ckpt.restore(root / "float32" / "every", like)
+    assert step == 4
+    leaves, want = jax.tree.leaves(back), jax.tree.leaves(like)
+    assert len(leaves) == len(want)
+    assert [a.shape for a in leaves] == [b.shape for b in want]
+    port = lm_untree(dataclasses.replace(get_arch("mamba2-130m").reduced(),
+                                         **(replace or {})),
+                     jax.tree.map(np.asarray, back["params"]))
+    for name, p in port.items():
+        np.testing.assert_array_equal(p, got["params"][name], err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def spawned(tmp_path_factory):
     """The reference's answers, then one spawn of the four ranks: (the
-    answers, every rank's results)."""
+    answers, every rank's results, the payload)."""
     rng = np.random.default_rng(0)
     moe = _moe_arrays(rng, 4)
     want = {"moe": _ref_moe(moe, _ref_moe_cfg(fsdp=True)),
@@ -152,10 +270,12 @@ def spawned():
     chunk = SyntheticTokens(256, seed=5).batch(4, 17)
     batch = {"tokens": chunk[:, :-1], "labels": chunk[:, 1:]}
     want["batch"] = batch
-    payload = {"moe": moe, "hints": hints, "lm": lm, "batch": batch}
+    payload = {"mesh": (2, 2), "moe": moe, "hints": hints, "lm": lm,
+               "batch": batch,
+               "ckpt": ckpt_payload(tmp_path_factory.mktemp("ckpt"))}
     results = run_ranks(ranks.checks, WORLD, payload, device="cpu",
                         timeout=300)
-    return want, results
+    return want, results, payload
 
 
 def _got(spawned, name: str) -> dict:
@@ -245,6 +365,15 @@ def test_train_under_a_process_mesh_matches_train(spawned):
     assert any("Shard" in p for p in got["placements"].values())
 
 
+def test_head_split_adds_no_collective_on_this_mesh(spawned):
+    """"model" (2) divides every head count of these runs, so
+    ``sharding.split_heads`` and ``merge_heads`` gather nothing (ROADMAP
+    C-F6): the prefills, decode steps and ``train(mesh=)`` run the
+    collectives they ran before the repair."""
+    for name in [f"lm {label}" for label in LM_CASES] + ["train"]:
+        assert _got(spawned, name)["head_gathers"] == 0, name
+
+
 def test_grad_shardings_place_each_gradient(spawned):
     got = _got(spawned, "grad_shardings")
     assert got["split"] > 0
@@ -296,3 +425,31 @@ def test_kernels_refuse_a_dtensor(spawned):
                         "embedding_bag", "fcfs_scan"}
     for name, msg in got.items():
         assert "takes local tensors, got a DTensor" in msg, (name, msg)
+
+
+@pytest.mark.parametrize("dtype", list(ranks.DTYPES))
+def test_mesh_checkpoint_files_equal_the_gathered_tensors(spawned, dtype):
+    check_files_equal_the_gathered_tensors(_got(spawned, f"ckpt {dtype}"))
+
+
+@pytest.mark.parametrize("dtype", list(ranks.DTYPES))
+def test_mesh_resume_repeats_the_uninterrupted_run(spawned, dtype):
+    check_resume_repeats_the_run(_got(spawned, f"ckpt {dtype}"))
+
+
+@pytest.mark.parametrize("dtype", list(ranks.DTYPES))
+def test_one_card_checkpoint_resumes_under_the_mesh(spawned, dtype):
+    check_one_card_checkpoint_resumes_under_the_mesh(
+        _got(spawned, f"ckpt {dtype}"))
+
+
+@pytest.mark.parametrize("dtype", list(ranks.DTYPES))
+def test_mesh_checkpoint_resumes_on_one_card(spawned, dtype):
+    check_mesh_checkpoint_resumes_on_one_card(
+        _got(spawned, f"ckpt {dtype}"), Path(spawned[2]["ckpt"]["dir"]),
+        dtype, None)
+
+
+def test_mesh_checkpoint_restores_in_the_reference(spawned, ref_ckpt):
+    check_restores_in_the_reference(_got(spawned, "ckpt float32"), ref_ckpt,
+                                    Path(spawned[2]["ckpt"]["dir"]), None)

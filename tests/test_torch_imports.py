@@ -70,13 +70,14 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
 
 
 def test_rank_code_imports_no_jax_and_no_reference():
-    """What the spawned ranks of ``tests/test_torch_distributed.py`` run
-    (``tests/torch_dist_ranks.py``) and of ``chip_smoke.py``'s phase 12
-    (``chip_smoke.mesh_ranks``, the launcher) import neither JAX nor the
-    reference."""
+    """What the spawned ranks of ``tests/test_torch_distributed.py`` and
+    ``_mesh_heads.py`` run (``tests/torch_dist_ranks.py``), the production
+    layout's walk (``tests/torch_production_walk.py``) and ``chip_smoke.py``'s
+    phase 12 (``chip_smoke.mesh_ranks``, the launcher) import neither JAX
+    nor the reference."""
     code = (
         "import json, sys\n"
-        "import torch_dist_ranks, chip_smoke\n"
+        "import torch_dist_ranks, torch_production_walk, chip_smoke\n"
         "from repro_torch.launch import mesh\n"
         "assert callable(torch_dist_ranks.checks)\n"
         "assert callable(chip_smoke.mesh_ranks)\n"

@@ -1,15 +1,19 @@
-"""The rank side of ``tests/test_torch_distributed.py``: what each of four
-gloo ranks on the CPU runs on a (2, 2) ("data", "model") mesh.  It imports
-only torch and the port (never JAX or the reference): the test process
-computes the reference's answers and passes them in as numpy arrays, and
-compares what the ranks send back.  ``checks`` runs every check in one
-spawn and reports each one's results, or its traceback, under its name.
+"""The rank side of ``tests/test_torch_distributed.py`` and
+``tests/test_torch_mesh_heads.py``: what each of four gloo ranks on the
+CPU runs on a (2, 2) or (1, 4) ("data", "model") mesh (the payload's
+``mesh``).  It imports only torch and the port (never JAX or the
+reference): the test process computes the reference's answers and passes
+them in as numpy arrays, and compares what the ranks send back.
+``checks`` runs every check in one spawn and reports each one's results,
+or its traceback, under its name.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import traceback
+from contextlib import contextmanager
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -17,16 +21,22 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.launch import sharding as shp
 from repro_torch.launch import steps as steps_module
+from repro_torch.launch import train as train_module
 from repro_torch.launch.mesh import make_process_mesh
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
-from repro_torch.launch.train import train
+from repro_torch.launch.train import train, train_state
 from repro_torch.models import layers
 from repro_torch.models.transformer import (get_model, lm_from_numpy,
                                             make_trainable)
 from repro_torch.optim import adamw
 from repro_torch.roofline import op_walk
 from repro_torch.roofline.analysis import RooflineTerms
+from repro_torch.serving import checkpoint
+
+# the sharded training runs, on the configuration ``reduced_arch`` gives
+TRAIN = dict(batch_size=4, seq_len=16, smoke=False)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 MOE_BASE = dict(d_model=32, d_expert=64, n_experts=4, top_k=2,
                 moe_capacity_factor=8.0)
@@ -38,6 +48,39 @@ def moe_cfg(**kw):
     capacity 8.0, with ``kw`` on top."""
     return dataclasses.replace(get_arch("mixtral-8x22b").reduced(),
                                **{**MOE_BASE, **kw})
+
+
+@contextmanager
+def reduced_arch(arch: str, replace: dict | None):
+    """Within: ``train(arch, smoke=False)`` trains ``arch``'s ``reduced()``
+    configuration with the fields of ``replace`` on top (``get_arch`` of
+    ``launch.train`` patched)."""
+    real = train_module.get_arch
+    cfg = dataclasses.replace(real(arch).reduced(), **(replace or {}))
+    train_module.get_arch = lambda name: cfg if name == arch else real(name)
+    try:
+        yield
+    finally:
+        train_module.get_arch = real
+
+
+@contextmanager
+def counted_head_gathers():
+    """Within: each time ``sharding.split_heads`` or ``merge_heads``
+    gathers a dimension (a collective) appends to the list it yields."""
+    gathers = []
+    real = shp._whole_where_uneven
+
+    def counted(x, dim, n):
+        y = real(x, dim, n)
+        if y is not x:
+            gathers.append((tuple(x.shape), dim, n))
+        return y
+    shp._whole_where_uneven = counted
+    try:
+        yield gathers
+    finally:
+        shp._whole_where_uneven = real
 
 
 def _full(x) -> np.ndarray:
@@ -124,7 +167,8 @@ def _lm_steps(mesh, case: dict) -> dict:
     ``api.decode_step`` fed the reference's greedy tokens, every step's
     logits back; and ``make_decode_step``'s greedy loop on its own
     tokens."""
-    cfg = get_arch(case["arch"]).reduced()
+    cfg = dataclasses.replace(get_arch(case["arch"]).reduced(),
+                              **case.get("replace", {}))
     if case.get("mode"):
         cfg = dataclasses.replace(cfg, moe_buffer_shard=case["mode"])
     api = get_model(cfg)
@@ -133,7 +177,10 @@ def _lm_steps(mesh, case: dict) -> dict:
     prefill = make_prefill_step(api, case["max_len"])
     serve = make_decode_step(api)
     batch = {"tokens": _data(case["tokens"], mesh)}
-    with shp.activate(mesh), torch.no_grad():
+    if case.get("extra") is not None:
+        batch["extra"] = _data(case["extra"], mesh)
+    with shp.activate(mesh), torch.no_grad(), \
+            counted_head_gathers() as gathers:
         cache, last = prefill(params, batch)
         logits = [_full(last)]
         placements = {n: str(list(t.placements)) for n, t in cache.items()
@@ -149,15 +196,17 @@ def _lm_steps(mesh, case: dict) -> dict:
         for _ in case["fed"]:
             tok, cache = serve(params, cache, tok)
             greedy.append(_full(tok))
-    return {"logits": logits, "greedy": greedy,
+    return {"logits": logits, "greedy": greedy, "head_gathers": len(gathers),
             "cache_placements": placements,
             "embed_placements": str(list(params.embed.placements))}
 
 
-def _train(mesh) -> dict:
-    params, opt, losses = train("mamba2-130m", steps=3, batch_size=4,
-                                seq_len=16, mesh=mesh, log_every=3)
-    return {"losses": losses,
+def _train(mesh, replace: dict | None) -> dict:
+    with reduced_arch("mamba2-130m", replace), \
+            counted_head_gathers() as gathers:
+        params, opt, losses = train("mamba2-130m", steps=3, mesh=mesh,
+                                    log_every=3, **TRAIN)
+    return {"losses": losses, "head_gathers": len(gathers),
             "params": {n: _full(p) for n, p in params.named_parameters()},
             "placements": {n: str(list(p.placements))
                            for n, p in params.named_parameters()}}
@@ -191,6 +240,24 @@ def _grad_shardings(mesh, batch: dict) -> dict:
             "placed": pinned, "loss": _full(metrics["loss"]),
             "split": sum(any(e is not None for e in s.spec)
                          for s in shardings.values())}
+
+
+def _ssm_step(mesh, case: dict) -> dict:
+    """One fp32 ``make_train_step`` of reduced mamba2-130m with the fields
+    of ``case["replace"]`` on top, placed by ``param_shardings``: the loss
+    and AdamW's first moment (a tenth of the gradient)."""
+    cfg = dataclasses.replace(get_arch("mamba2-130m").reduced(),
+                              **case["replace"])
+    api = get_model(cfg)
+    params = make_trainable(api.init_params(torch.Generator().manual_seed(0),
+                                            torch.float32, "cpu"))
+    shp.place_params(params, shp.param_shardings(params, cfg, mesh))
+    opt = adamw.init(dict(params.named_parameters()))
+    with shp.activate(mesh), counted_head_gathers() as gathers:
+        batch = {k: _data(v, mesh) for k, v in case["batch"].items()}
+        _, opt, metrics = make_train_step(api, 1)(params, opt, batch)
+    return {"m": {n: _full(m) for n, m in opt.m.items()},
+            "loss": _full(metrics["loss"]), "head_gathers": len(gathers)}
 
 
 def _constrain(mesh) -> dict:
@@ -254,23 +321,126 @@ def _kernels_refuse(mesh) -> dict:
     return out
 
 
+def _host_leaves(state) -> list:
+    """The leaves of a train state as ``checkpoint.save`` writes them: each
+    DTensor gathered whole, on the host (bf16 as ``|V2``)."""
+    return [checkpoint._to_host(leaf.full_tensor() if shp.is_distributed(leaf)
+                                else leaf)
+            for leaf in checkpoint._flatten(state)]
+
+
+def _differ(state, path: Path) -> list:
+    """Indices of the leaves of ``state`` (gathered) that differ, bit for
+    bit, from the file's; the leaf counts too where they differ."""
+    held = _host_leaves(state)
+    with np.load(path) as f:
+        files = [f[f"leaf_{i}"] for i in range(len(f.files))]
+    if len(files) != len(held):
+        return [("count", len(held), len(files))]
+    return [i for i, (a, b) in enumerate(zip(held, files))
+            if a.dtype != b.dtype or a.shape != b.shape
+            or a.tobytes() != b.tobytes()]
+
+
+def _off_mesh(params, opt, mesh) -> list:
+    """Names of the parameters and AdamW leaves not placed by
+    ``param_shardings`` (``master``, ``m`` and ``v`` as their parameters);
+    the step counter must stay a plain tensor."""
+    cfg = train_module.get_arch("mamba2-130m")
+    leaves = params.state_dict(keep_vars=True)
+    want = {n: str(shp.placements(s.spec, mesh, leaves[n].dim()))
+            for n, s in shp.param_shardings(params, cfg, mesh).items()}
+    out = [("step", "DTensor")] if shp.is_distributed(opt.step) else []
+    for field, named in (("param", dict(params.named_parameters())),
+                         ("master", opt.master), ("m", opt.m), ("v", opt.v)):
+        for n, t in named.items():
+            got = (str(list(t.placements)) if shp.is_distributed(t)
+                   else "plain")
+            if got != want[n]:
+                out.append((field, n, got))
+    return out
+
+
+def _ckpt(mesh, case: dict, dtype: str) -> dict:
+    """A-18 on the mesh in ``dtype``: (a) a 4-step run with a checkpoint
+    every step, its step-4 file against the gathered tensors; (b) 2 steps,
+    a checkpoint, a resume for 2 more, against that run; (c) the one-card
+    checkpoint of ``case["one_card"]`` resumed under the mesh; (d) the
+    writes each rank made (``np.savez`` calls) and the files kept."""
+    kw = dict(mesh=mesh, log_every=100, param_dtype=DTYPES[dtype], **TRAIN)
+    root = Path(case["dir"]) / dtype
+    writes = []
+    real = np.savez
+
+    def counted(*args, **kwargs):
+        writes.append(1)
+        return real(*args, **kwargs)
+    np.savez = counted
+    try:
+        with reduced_arch("mamba2-130m", case.get("replace")):
+            params, opt, losses = train("mamba2-130m", steps=4,
+                                        ckpt_dir=root / "every", ckpt_every=1,
+                                        **kw)
+            train("mamba2-130m", steps=2, ckpt_dir=root / "resume",
+                  ckpt_every=2, **kw)
+            again, opt2, resumed = train("mamba2-130m", steps=2,
+                                         ckpt_dir=root / "resume",
+                                         ckpt_every=2, resume=True, **kw)
+            one, opt1, _ = train("mamba2-130m", steps=0, resume=True,
+                                 ckpt_dir=case["one_card"][dtype], **kw)
+            cfg = train_module.get_arch("mamba2-130m")
+            differ = {
+                "every": _differ(train_state(cfg, params, opt),
+                                 root / "every" / "step_0000000004.npz"),
+                "one_card": _differ(train_state(cfg, one, opt1), Path(
+                    case["one_card"][dtype]) / "step_0000000002.npz")}
+            off = {"resumed": _off_mesh(again, opt2, mesh),
+                   "one_card": _off_mesh(one, opt1, mesh)}
+    finally:
+        np.savez = real
+    gathered = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(gathered, len(writes))
+    named = dict(params.named_parameters())
+    return {
+        "losses": losses, "resumed_losses": resumed,
+        "differ_params": [n for n, p in again.named_parameters()
+                          if not torch.equal(p.full_tensor(),
+                                             named[n].full_tensor())],
+        "differ_opt": [(f, n) for f in ("master", "m", "v")
+                       for n, t in getattr(opt2, f).items()
+                       if not torch.equal(t.full_tensor(),
+                                          getattr(opt, f)[n].full_tensor())],
+        "steps": (int(opt.step), int(opt2.step), int(opt1.step)),
+        "differ_files": differ, "off_mesh": off, "writes": gathered,
+        "kept": sorted(p.name for p in (root / "every").iterdir()),
+        "params": {n: _full(p) for n, p in again.named_parameters()}}
+
+
 def checks(rank: int, world: int, payload: dict) -> dict:
     """Every check on this rank; each one's results, or its traceback
     under "error"."""
     torch.manual_seed(0)
     # four ranks beside the test workers: few intra-op threads each
     torch.set_num_threads(2)
-    mesh = make_process_mesh((2, 2), ("data", "model"), device="cpu")
-    runs = {"moe_local": lambda: _moe_local(mesh, payload["moe"]),
+    mesh = make_process_mesh(payload["mesh"], ("data", "model"),
+                             device="cpu")
+    runs = {}
+    if "moe" in payload:
+        runs.update({
+            "moe_local": lambda: _moe_local(mesh, payload["moe"]),
             "hints": lambda: _hints(mesh, payload["hints"]),
-            "train": lambda: _train(mesh),
-            "grad_shardings": lambda: _grad_shardings(mesh,
-                                                      payload["batch"]),
+            "grad_shardings": lambda: _grad_shardings(mesh, payload["batch"]),
             "constrain": lambda: _constrain(mesh),
             "kernels": lambda: _kernels_refuse(mesh),
-            "walk": lambda: _walk(mesh, payload["moe"])}
+            "walk": lambda: _walk(mesh, payload["moe"])})
+    runs["train"] = lambda: _train(mesh, payload["ckpt"].get("replace"))
+    if "ssm_step" in payload:
+        runs["ssm_step"] = lambda: _ssm_step(mesh, payload["ssm_step"])
     for label, case in payload["lm"].items():
         runs[f"lm {label}"] = lambda case=case: _lm_steps(mesh, case)
+    for dtype in DTYPES:
+        runs[f"ckpt {dtype}"] = lambda dtype=dtype: _ckpt(
+            mesh, payload["ckpt"], dtype)
     out = {}
     for name, run in runs.items():
         try:

@@ -192,13 +192,13 @@ print a line and raise on failure:
    (expert-parallel) and "local", each within 1e-4 x max |logits| of the
    one-rank run with the same greedy tokens (its expert picks replayed,
    C-R31; for "local" the one-rank run takes each MoE layer per data
-   shard, as the local layer does, C-R37); then bf16 at full depth,
-   prefill and decode steps timed, peak memory a rank; (c) mamba2-130m
+   shard, as the local layer does, C-R37); then bf16 cut to 8 of its 16
+   layers, prefill and decode steps timed, peak memory a rank; (c) mamba2-130m
    at full width and depth trained on the 4 ranks (B 4 x S 2048): one
    fp32 ``train(mesh=)`` step against the one-card step and against a
    float64 witness of it (loss within 1e-5; each leaf's gradient within
    1e-4 x its max |g| plus twice the one-card step's own distance from
-   the witness, phase 8b's rule), then 3 bf16 steps timed; (b') the 4
+   the witness, phase 8b's rule), then 1 bf16 step timed; (b') the 4
    ranks on a (1, 4) mesh, whose "model" axis does not divide the 2 KV
    heads (``sharding.split_heads`` gathers them, ROADMAP C-F6), serve
    qwen2.5-3b at full width in fp32 cut to 4 layers, prefill 4 x 2048
@@ -209,7 +209,15 @@ print a line and raise on failure:
    rank 0 writes), the step-4 one removed as if the run had been cut
    after step 2, then a resume for 2 more, bit for bit against the
    4-step run (losses, parameters, AdamW state), the gather's bytes and
-   the save and restore times printed;
+   the save and restore times printed; (d) the multi-pod dry run
+   (``launch.dryrun``) in a subprocess on the CPU: (b')'s calls at
+   (b')'s configuration, layers, batch, prompt and steps walked on the
+   meta device over torch's fake group of 4 at (1, 4), its collectives
+   by kind equal to those rank 0 staged through host memory in (b');
+   then qwen2.5-3b's ``decode_32k`` cell at the (16, 16) and
+   (2, 16, 16) production meshes (fake groups of 256 and 512): per-device
+   flops, bytes, collective bytes, the dominant term, the walk's
+   seconds;
 9. the scenario engine (``repro_torch.scenario``) over mtwnd's simulator
    plane, the engine's GP on the host: diurnal-day at n 2000 / window
    400, spot-churn and tier-outage (the tiered plane: ``serving/fault.py``
@@ -287,6 +295,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -3533,8 +3542,9 @@ WARM_ANCHORS = {None: ((6, 0, 1), 3.305), "hedged": ((1, 5, 1), 2.375)}
 # SHARD_TOL x max |logits| of the one-rank run with its expert picks
 # replayed (for the local MoE layer a one-rank run with each MoE layer
 # run per data shard: its capacity counts the shard's tokens, so it drops
-# other pairs than the global layer, C-R37); then bf16 at full depth,
-# timed.  (c): mamba2-130m at full width and depth, B TRAIN_B x S TRAIN_S:
+# other pairs than the global layer, C-R37); then bf16 cut to
+# SHARD_BF16_LAYERS layers, timed.  (c): mamba2-130m at full width and
+# depth, B TRAIN_B x S TRAIN_S:
 # one fp32 train() step against the one-card step and against a float64
 # witness of it (the same weights and batch, float64 throughout on the
 # plain path): losses within TRAIN_LOSS_RTOL; each leaf's AdamW first
@@ -3546,7 +3556,7 @@ MESH_RANKS, MESH_SHAPE = 4, (2, 2)
 SHARD_ARCH, SHARD_GATE_LAYERS = "olmoe-1b-7b", 4
 SHARD_B, SHARD_S, SHARD_STEPS = 4, 2048, 8
 SHARD_TOL = 1e-4
-SHARD_TRAIN_ARCH, SHARD_TRAIN_STEPS = "mamba2-130m", 3
+SHARD_TRAIN_ARCH, SHARD_TRAIN_STEPS = "mamba2-130m", 1
 # (b'): HEADS_ARCH at full width on the same ranks as a HEADS_SHAPE mesh,
 # whose "model" axis does not divide its KV heads, fp32 cut to
 # SHARD_GATE_LAYERS layers: prefill SHARD_B x SHARD_S and SHARD_STEPS
@@ -3560,6 +3570,19 @@ SHARD_TRAIN_ARCH, SHARD_TRAIN_STEPS = "mamba2-130m", 3
 # run, bit for bit.
 HEADS_ARCH, HEADS_SHAPE = "qwen2.5-3b", (1, 4)
 RESUME_AT, RESUME_LAYERS, RESUME_S = 2, 4, 512
+# (b)'s bf16 run: olmoe-1b-7b at full width cut to SHARD_BF16_LAYERS of
+# its 16 layers (the phase's time, ROADMAP G-3)
+SHARD_BF16_LAYERS = 8
+# (d): the dry run (launch.dryrun) walks exactly (b')'s calls in a CPU
+# process over torch's fake group of MESH_RANKS at HEADS_SHAPE; its
+# collectives by kind must equal those rank 0 staged in (b'); then
+# DRYRUN_ARCH's DRYRUN_SHAPE cell at both production meshes
+DRYRUN_ARCH, DRYRUN_SHAPE = "qwen2.5-3b", "decode_32k"
+# host_collectives' staged ops → the walk's collective kinds
+STAGED_KINDS = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+                "all_gather_into_tensor": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "all_to_all_single": "all-to-all"}
 
 
 @contextmanager
@@ -3718,7 +3741,8 @@ def mesh_settings(device: str = "cuda") -> dict:
                 train_arch=SHARD_TRAIN_ARCH, train_b=TRAIN_B,
                 train_s=TRAIN_S, train_steps=SHARD_TRAIN_STEPS, smoke=False,
                 changes={}, heads_arch=HEADS_ARCH, resume_at=RESUME_AT,
-                resume_layers=RESUME_LAYERS, resume_s=RESUME_S)
+                resume_layers=RESUME_LAYERS, resume_s=RESUME_S,
+                bf16_layers=SHARD_BF16_LAYERS)
 
 
 def _arch(job: dict, name: str, **changes):
@@ -3806,11 +3830,15 @@ def _sharded_serve(mesh, job: dict, mode: str) -> dict:
             "counts": counts}
 
 
+def _bf16_layers(job: dict) -> int:
+    return min(job["bf16_layers"], _arch(job, "arch").n_layers)
+
+
 def _sharded_bf16(mesh, job: dict) -> dict:
-    """(b)'s bf16 run at full depth: two serving runs (prefill, then greedy
-    decode steps), the second timed on the host clock."""
+    """(b)'s bf16 run cut to ``bf16_layers``: two serving runs (prefill,
+    then greedy decode steps), the second timed on the host clock."""
     import torch.distributed as dist
-    api = get_model(_arch(job, "arch"))
+    api = get_model(_arch(job, "arch", n_layers=_bf16_layers(job)))
     params = _rank_params(api, mesh, torch.bfloat16, False)
     dev = mesh.devices[dist.get_rank()]
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -3923,6 +3951,25 @@ def _sharded_train(mesh, job: dict) -> dict:
             "peak_gb": _peak_gb(dev)}
 
 
+def _heads_calls(api, params, mesh, dev, tokens, fed, max_len: int,
+                 full) -> tuple:
+    """(b')'s calls on ``mesh``: the prompt placed, prefill, then one
+    decode step for each token of ``fed``; every logits through ``full``
+    (each a gather of the DTensor) and the cache's k and v placements."""
+    with shp.activate(mesh), torch.no_grad():
+        tokens = shp.place(tokens.to(dev), shp.data_sharding(tokens.shape,
+                                                             mesh))
+        cache, last = make_prefill_step(api, max_len)(params,
+                                                      {"tokens": tokens})
+        placements = {n: str(list(cache[n].placements)) for n in ("k", "v")}
+        logits = [full(last)]
+        for f in fed:
+            out, cache = api.decode_step(params, cache, shp.place(
+                f.to(dev), shp.data_sharding(f.shape, mesh)))
+            logits.append(full(out))
+    return logits, placements
+
+
 def _sharded_heads(mesh, job: dict) -> dict:
     """(b'): the fp32 gate on the (1, 4) mesh: prefill and decode steps fed
     the one-rank run's greedy tokens; every logits, the cache's k and v
@@ -3931,20 +3978,106 @@ def _sharded_heads(mesh, job: dict) -> dict:
     params = _rank_params(api, mesh, torch.float32, False)
     dev = mesh.devices[torch.distributed.get_rank()]
     reset_counts()
-    with shp.activate(mesh), torch.no_grad():
-        tokens = shp.place(job["heads_tokens"].to(dev), shp.data_sharding(
-            job["heads_tokens"].shape, mesh))
-        cache, last = make_prefill_step(api, job["s"] + job["steps"])(
-            params, {"tokens": tokens})
-        placements = {n: str(list(cache[n].placements)) for n in ("k", "v")}
-        logits = [_full(last)]
-        for fed in job["heads_fed"]:
-            out, cache = api.decode_step(params, cache, shp.place(
-                fed.to(dev), shp.data_sharding(fed.shape, mesh)))
-            logits.append(_full(out))
+    logits, placements = _heads_calls(
+        api, params, mesh, dev, job["heads_tokens"], job["heads_fed"],
+        job["s"] + job["steps"], _full)
     _sync(dev)
     return {"logits": logits, "counts": _rank_counts(),
             "cache": placements}
+
+
+def dry_run_walks(job: dict) -> dict:
+    """Phase 12(d), in a CPU process of its own (its fake groups must not
+    meet phase 12's ranks): (b')'s calls at (b')'s configuration, layers,
+    batch, prompt and steps walked on the meta device
+    (``roofline.op_walk``) over torch's fake group of MESH_RANKS at
+    HEADS_SHAPE, the mesh of the cards' device type (``launch.mesh``,
+    ``device="meta"``), each logits gathered as ``_full`` gathers it; then
+    ``launch.dryrun.run_cell`` of DRYRUN_ARCH's DRYRUN_SHAPE at the
+    single- and multi-pod meshes.  The collective counts by kind, the
+    walk's seconds and the two records' numbers."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_process_mesh as process_mesh
+    api = get_model(_arch(job, "heads_arch", n_layers=job["gate_layers"]))
+    t0 = time.perf_counter()
+    with dryrun.fake_world(MESH_RANKS):
+        mesh = process_mesh(HEADS_SHAPE, ("data", "model"), device="meta")
+        params = api.init_params(torch.Generator().manual_seed(0),
+                                 torch.float32, "meta")
+        shp.place_params(params, shp.param_shardings(params, api.cfg, mesh))
+        b, s = job["b"], job["s"]
+        tokens = torch.empty((b, s), dtype=torch.int32, device="meta")
+        fed = [torch.empty((b, 1), dtype=torch.int32, device="meta")
+               for _ in range(job["steps"])]
+        acc = op_walk.analyze(_heads_calls, api, params, mesh, "meta",
+                              tokens, fed, s + job["steps"],
+                              lambda x: x.full_tensor())
+    out = {"counts": {k: n for k, n in acc.collective_counts.items() if n},
+           "walk_s": time.perf_counter() - t0, "records": {}}
+    for kind in ("single", "multi"):
+        with dryrun.fake_world(dryrun.WORLDS[kind]):
+            rec = dryrun.run_cell(DRYRUN_ARCH, DRYRUN_SHAPE, kind)
+        out["records"][kind] = {k: rec[k] for k in (
+            "chips", "flops_per_device", "bytes_per_device",
+            "collective_bytes_per_device", "collective_counts", "walk_s",
+            "split")} | {"dominant": rec["roofline"]["dominant"]}
+    return out
+
+
+def start_dry_run(job: dict) -> tuple:
+    """Phase 12(d)'s ``dry_run_walks`` started in a subprocess on the CPU
+    (no card visible to it), to run beside phase 12's ranks: (the
+    process, its start on the host clock)."""
+    keys = ("heads_arch", "gate_layers", "b", "s", "steps", "smoke",
+            "changes")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import json, sys, chip_smoke; print(json."
+         "dumps(chip_smoke.dry_run_walks(json.loads(sys.argv[1]))))",
+         json.dumps({k: job[k] for k in keys})],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    return proc, time.perf_counter()
+
+
+def dry_run_phase(job: dict, started: tuple, staged: dict,
+                  on_card: bool) -> None:
+    """Phase 12(d): the walks ``start_dry_run`` started, their collectives
+    by kind against ``staged``, the collectives rank 0 staged through
+    host memory in (b') (every functional collective a gloo rank on a
+    card runs: what the card's ranks ran); a CPU rehearsal stages none
+    and compares nothing."""
+    proc, t0 = started
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"dry run walks: {err[-3000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    ran = {}
+    for name, n in staged.items():
+        kind = STAGED_KINDS.get(name, name)
+        ran[kind] = ran.get(kind, 0) + n
+    walked = got["counts"]
+    if on_card and (not ran or walked != ran):
+        raise AssertionError(f"dry run: the walk of (b')'s calls counts "
+                             f"{walked}, rank 0 staged {ran}")
+    phase("dryrun", f"(b')'s calls ({job['heads_arch']} {job['gate_layers']} "
+                    f"layers fp32, prefill {job['b']} x {job['s']}, "
+                    f"{job['steps']} decode steps, each logits gathered) "
+                    f"walked on meta over a fake group of {MESH_RANKS} at "
+                    f"{HEADS_SHAPE}: collectives {walked}; rank 0 staged "
+                    f"{ran}" + (" (equal)" if on_card else
+                                " (a CPU rehearsal stages none)")
+                    + f"; walk {got['walk_s']:.1f} s, subprocess "
+                    f"{time.perf_counter() - t0:.1f} s (beside the ranks)")
+    for kind, r in got["records"].items():
+        phase("dryrun", f"{DRYRUN_ARCH} {DRYRUN_SHAPE} at the {kind} "
+                        f"production mesh ({r['chips']} ranks, fake group, "
+                        f"meta; counts, not times): per device "
+                        f"{r['flops_per_device']:.6g} flops, "
+                        f"{r['bytes_per_device']:.6g} HBM bytes, "
+                        f"{r['collective_bytes_per_device']:.6g} collective "
+                        f"wire bytes; dominant {r['dominant']}; split "
+                        f"{r['split']}; walk {r['walk_s']} s")
 
 
 @contextmanager
@@ -4140,12 +4273,23 @@ def _one_card_train(job: dict) -> dict:
 
 
 def mesh_serving_phase(job: dict | None = None) -> dict:
-    """Phase 12 (b) and (c): the one-rank runs here, then one spawn of
-    MESH_RANKS ranks (``run_ranks``) for the sharded ones; every gate on
-    rank 0's gathered results and each rank's launches.  Returns the
-    launches by path for the kernels line.  ``job`` (``mesh_settings``)
-    sets the sizes and the device."""
+    """Phase 12 (b)-(d): the one-rank runs here, then one spawn of
+    MESH_RANKS ranks (``run_ranks``) for the sharded ones, (d)'s walks
+    in a subprocess beside them; every gate on rank 0's gathered results
+    and each rank's launches.  Returns the launches by path for the
+    kernels line.  ``job`` (``mesh_settings``) sets the sizes and the
+    device."""
     job = mesh_settings() if job is None else job
+    walks = start_dry_run(job)
+    try:
+        return _mesh_serving(job, walks)
+    finally:
+        if walks[0].poll() is None:
+            walks[0].kill()
+            walks[0].communicate()
+
+
+def _mesh_serving(job: dict, walks: tuple) -> dict:
     t0 = time.perf_counter()
     one = {mode: _one_rank_serve(job, mode) for mode in ("none", "local")}
     one_heads = _one_rank_heads(job)
@@ -4192,19 +4336,21 @@ def mesh_serving_phase(job: dict | None = None) -> dict:
                       f"{got['routed']} routings flip; per rank flash "
                       f"{layers_} + decode {layers_ * steps} launches")
     bf16 = [r["bf16"] for r in ranks]
+    bf16_layers = _bf16_layers(job)
     for b in bf16:
         c = b["counts"]
-        if on_card and (c["flash_attention"][0] != 2 * full_layers or c[
-                "decode_attention"][0] != 2 * full_layers * steps):
+        if on_card and (c["flash_attention"][0] != 2 * bf16_layers or c[
+                "decode_attention"][0] != 2 * bf16_layers * steps):
             raise AssertionError(f"sharded bf16: launches {c}")
         if not torch.equal(b["tokens"], bf16[0]["tokens"]):
             raise AssertionError("sharded bf16: ranks hold other tokens")
-    phase("mesh", f"{job['arch']} {full_layers} layers bf16 on {MESH_RANKS} "
+    phase("mesh", f"{job['arch']} at full width cut to {bf16_layers} of its "
+                  f"{full_layers} layers, bf16 on {MESH_RANKS} "
                   f"ranks: prefill {job['b']} x {job['s']} "
                   f"{bf16[0]['prefill_ms']:.1f} ms, decode "
                   f"{bf16[0]['step_ms']:.1f} ms a step (second run, host "
-                  f"clock, rank 0); per rank flash {2 * full_layers} and "
-                  f"decode {2 * full_layers * steps} launches; peak "
+                  f"clock, rank 0); per rank flash {2 * bf16_layers} and "
+                  f"decode {2 * bf16_layers * steps} launches; peak "
                   f"memory a rank " + ", ".join(f"{b['peak_gb']:.2f}"
                                                 for b in bf16) + " GB")
     heads_layers = job["gate_layers"]
@@ -4342,6 +4488,7 @@ def mesh_serving_phase(job: dict | None = None) -> dict:
                   f"head split gathered {parts[str(HEADS_SHAPE)]['head_gathers']} "
                   f"times on {HEADS_SHAPE}, never on {MESH_SHAPE}; on "
                   f"{CARD['smi']}")
+    dry_run_phase(job, walks, parts[str(HEADS_SHAPE)]["staged"], on_card)
 
     def total(kernel, part):
         return sum(r[part]["counts"][kernel][0] for r in ranks)

@@ -12,7 +12,9 @@ resolves to replicated).
 
 ``make_process_mesh`` builds the mesh over the world of an initialised
 group, this rank's device its own card where the world fits on the
-cards, else ``cuda:0`` (ranks sharing one card), or the CPU when asked.
+cards, else ``cuda:0`` (ranks sharing one card), or the CPU when asked,
+or no device for a walk on meta over torch's ``fake`` group (how
+``launch.dryrun`` builds the production meshes with no card).
 ``run_ranks`` spawns N ranks (a ``file://`` rendezvous in a temporary
 directory, NCCL for one rank a card, gloo where ranks share a card or
 run on the CPU), runs a function on each and returns their results.
@@ -74,7 +76,11 @@ def make_process_mesh(shape: tuple = None, axes: tuple = ("data", "model"),
     world of the initialised default process group, with a
     ``DeviceMesh`` of the same axis names and shape; ``devices`` lists
     each rank's device.  A gloo group on a card stages its collectives
-    through host memory (``host_collectives``)."""
+    through host memory (``host_collectives``).  ``device="meta"`` builds
+    a mesh of no device for a walk (``roofline.op_walk``) over torch's
+    ``fake`` group: its ``DeviceMesh`` takes the cards' type, so that
+    DTensor takes the paths it takes on cards (an all-to-all where a
+    CPU group gathers instead)."""
     from torch.distributed.device_mesh import DeviceMesh
     if not dist.is_initialized():
         raise RuntimeError("make_process_mesh needs an initialised "
@@ -86,6 +92,10 @@ def make_process_mesh(shape: tuple = None, axes: tuple = ("data", "model"),
     if math.prod(shape) != world:
         raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks, the "
                          f"world has {world}")
+    if device is not None and torch.device(device).type == "meta":
+        dm = DeviceMesh("cuda", torch.arange(world).reshape(shape),
+                        mesh_dim_names=axes)
+        return _mesh(shape, axes, [torch.device("meta")] * world, dm)
     dev = rank_device(world, dist.get_rank(), device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -101,18 +111,23 @@ def make_process_mesh(shape: tuple = None, axes: tuple = ("data", "model"),
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """(16, 16) ("data", "model") over 256 ranks, or (2, 16, 16) ("pod",
     "data", "model") over 512, one card each, over the initialised
-    process group (``make_process_mesh``); raises RuntimeError when the
-    world or this host's cards fall short."""
+    process group (``make_process_mesh``).  Over torch's ``fake`` group
+    (``torch.testing._internal.distributed.fake_pg``) of that world it
+    needs no card: the mesh of a walk on meta (``device="meta"``), as
+    ``launch.dryrun`` builds it.  Raises RuntimeError when the world, or
+    a real group's cards, fall short."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     n = math.prod(shape)
     world = dist.get_world_size() if dist.is_initialized() else 1
+    fake = world == n and dist.get_backend() == "fake"
     have = torch.cuda.device_count()
-    if world != n or have < n:
+    if not fake and (world != n or have < n):
         raise RuntimeError(
-            f"mesh {shape} needs a process group of {n} ranks on {n} cards, "
+            f"mesh {shape} needs a process group of {n} ranks on {n} cards "
+            f"(or torch's fake group of {n} ranks, for a walk on meta), "
             f"have {world} rank(s) and {have} card(s)")
-    return make_process_mesh(shape, axes)
+    return make_process_mesh(shape, axes, device="meta" if fake else None)
 
 
 def make_local_mesh(device=None) -> Mesh:

@@ -31,7 +31,9 @@ mesh dimensions in their order.  ``constrain`` and
 ``with_sharding_constraint`` make a plain tensor a replicated DTensor
 first and ``redistribute`` a DTensor; ``place_params`` and
 ``place_cache`` place a model's parameters and a KV cache by their
-shardings.  On the one-card mesh (no process group) every spec resolves
+shardings.  A product whose contraction is split leaves partial sums,
+which ``reduce_partial`` adds up at once, as GSPMD does (the models'
+``dense``).  On the one-card mesh (no process group) every spec resolves
 to replicated and the tensor passes through itself; a spec that would
 split a tensor on a mesh without a process group raises, never
 replicating it quietly.
@@ -183,6 +185,24 @@ def constrain(x: torch.Tensor, *spec) -> torch.Tensor:
         return x
     return with_sharding_constraint(
         x, NamedSharding(mesh, resolve_spec(spec, x.shape, mesh)))
+
+
+def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's pending sums (``Partial`` placements, what a product
+    sharded on its contraction leaves) added up now (``Replicate()``, an
+    all-reduce on each such mesh dimension); any other tensor itself.
+    DTensor otherwise carries the sums on through the ops that follow
+    (a residual add, a norm's square) and may then gather a weight rather
+    than reduce an activation, so that the next product runs unsplit on
+    every rank of "model"; GSPMD adds them where the product is made."""
+    if not is_distributed(x):
+        return x
+    from torch.distributed.tensor import Partial, Replicate
+    place = [Replicate() if isinstance(p, Partial) else p
+             for p in x.placements]
+    if place == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, place)
 
 
 def local_call(fn, args: tuple, specs: tuple, out_specs):

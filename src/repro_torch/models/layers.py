@@ -56,7 +56,20 @@ def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None):
-    y = x @ w
+    """``x @ w (+ b)``.  Under a mesh over a process group x's leading
+    dimensions are flattened into one first: ``matmul`` folds them only
+    where their strides allow, and a DTensor's strides (a size-1
+    dimension's scaled by the shard count) can stop the fold, so that the
+    product runs batched on ``w`` expanded, which DTensor then copies for
+    each row of the batch shard.  A row-parallel product's partial sums
+    are added up at once (``sharding.reduce_partial``), as GSPMD adds
+    them."""
+    if shp.is_distributed(x) and x.dim() > 2:
+        y = x.reshape(-1, x.shape[-1]) @ w
+        y = y.reshape(*x.shape[:-1], w.shape[-1])
+    else:
+        y = x @ w
+    y = shp.reduce_partial(y)
     return y if b is None else y + b
 
 

@@ -15,8 +15,8 @@ every aten op is its own kernel and the layer loops run in Python, so
   its inputs from and writes its outputs to device memory (an in-place op
   counts its target as read and written);
 * collectives: operand bytes and wire bytes (``hlo_walk``'s ring
-  coefficients) by kind for every functional c10d collective, none on one
-  card.
+  coefficients) by kind for every functional c10d collective and
+  DTensor's all-to-all, none on one card.
 
 Pass meta tensors (``launch.specs``): nothing is allocated and nothing
 runs on a device.  The port's kernels (``kernels.ops``) take a meta route
@@ -34,6 +34,7 @@ on meta raises.
 
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -49,16 +50,21 @@ from .analysis import COLLECTIVE_OPS
 _WIRE_COEFF = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
                "all-to-all": 1.0, "collective-permute": 1.0}
 # functional c10d collectives (``torch.distributed._functional_collectives``)
-_C10D = {"all_reduce": "all-reduce", "all_gather_into_tensor": "all-gather",
-         "reduce_scatter_tensor": "reduce-scatter",
-         "all_to_all_single": "all-to-all"}
+# and DTensor's own all-to-all (a shard moved from one dimension to another
+# on a mesh of cards), by op name
+_C10D = {"_c10d_functional::all_reduce": "all-reduce",
+         "_c10d_functional::all_gather_into_tensor": "all-gather",
+         "_c10d_functional::reduce_scatter_tensor": "reduce-scatter",
+         "_c10d_functional::all_to_all_single": "all-to-all",
+         "_dtensor::shard_dim_alltoall": "all-to-all"}
 
 # ops that launch no kernel: allocation, aliasing, metadata
 _NO_KERNEL = {"aten::empty", "aten::empty_like", "aten::empty_strided",
               "aten::new_empty", "aten::new_empty_strided",
               "aten::_unsafe_view", "aten::detach", "aten::alias",
               "aten::lift_fresh", "aten::set_", "aten::resize_",
-              "_c10d_functional::wait_tensor"}
+              "_c10d_functional::wait_tensor",
+              "_c10d_functional::_wrap_tensor_autograd"}
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -67,6 +73,22 @@ def _nbytes(t: torch.Tensor) -> int:
 
 def _tensors(tree) -> list:
     return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def _handed_on(types) -> bool:
+    """Whether an op on these tensor types is DTensor's to run (a DTensor
+    among them; none exists before ``torch.distributed.tensor`` is
+    imported)."""
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    return dtensor is not None and any(issubclass(t, dtensor.DTensor)
+                                       for t in types)
+
+
+def _fake(types) -> bool:
+    """Whether an op runs on fake tensors (DTensor's sharding propagation)."""
+    fake = sys.modules.get("torch._subclasses.fake_tensor")
+    return fake is not None and any(issubclass(t, fake.FakeTensor)
+                                    for t in types)
 
 
 @dataclass
@@ -112,6 +134,10 @@ class OpWalk(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if _handed_on(types):
+            return NotImplemented
+        if _fake(types):
+            return func(*args, **kwargs)
         packet = func.overloadpacket
         # as FlopCounterMode: an op without a formula that decomposes is
         # counted by its parts
@@ -129,8 +155,8 @@ class OpWalk(TorchDispatchMode):
         flops = 0
         if packet in flop_registry:
             flops = flop_registry[packet](*args, **kwargs, out_val=out)
-        kind = _C10D.get(name.removeprefix("_c10d_functional::"))
-        if kind is not None and name.startswith("_c10d_functional::"):
+        kind = _C10D.get(name)
+        if kind is not None:
             operand = sum(_nbytes(t) for t in ins)
             wire = (sum(map(_nbytes, _tensors(out))) if kind == "all-gather"
                     else _WIRE_COEFF[kind] * operand)

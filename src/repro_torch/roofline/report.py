@@ -1,6 +1,8 @@
-"""Roofline report of every (arch, shape) cell on one H100, walked on meta.
+"""Roofline report of every (arch, shape) cell on one H100, walked on meta,
+or on the production meshes from the dry run's records.
 
     PYTHONPATH=src python -m repro_torch.roofline.report [--arch A] [--shape S]
+    PYTHONPATH=src python -m repro_torch.roofline.report --mesh single|multi
 
 Counterpart of ``repro/roofline/report.py``, whose records come from the
 reference's compiled dry runs (``launch/dryrun.py``, XLA only).  Here each
@@ -13,16 +15,22 @@ parameters), a prefill cell one ``make_prefill_step``, a decode cell one
 ``make_decode_step`` against a cache of the shape's length.  The terms are
 one card's (``chips`` 1, mesh "single-card"); the tables print as
 markdown.  The same table functions as the reference's, over these
-records.
+records.  ``--mesh single`` or ``multi`` loads the records that
+``launch.dryrun`` wrote for that mesh (``load``, the reference's, its
+variants left out) from ``dryrun.OUT_DIR`` (``--out`` another folder) and
+prints the same tables.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
+from pathlib import Path
 
 from ..configs import ARCHS, SHAPES, cell_is_applicable, get_arch
 from ..launch import specs
+from ..launch.dryrun import OUT_DIR
 from ..launch.steps import (make_decode_step, make_prefill_step,
                             make_train_step)
 from ..models.transformer import get_model, make_trainable
@@ -80,6 +88,17 @@ def walk_cell(arch: str, shape: str) -> dict:
         "model_params_active": count_params(cfg, active_only=True),
         "useful_flops_fraction": mflops / acc.flops if acc.flops else 0.0,
     }
+
+
+def load(mesh: str = "single", out_dir=None) -> list[dict]:
+    """The dry run's records of ``mesh`` ("single" or "multi"), skips and
+    errors included, variants left out."""
+    recs = []
+    for p in sorted((Path(out_dir) if out_dir else OUT_DIR).glob("*.json")):
+        r = json.loads(p.read_text())
+        if r.get("mesh") == mesh and not r.get("variant"):
+            recs.append(r)
+    return recs
 
 
 def _fmt_s(x: float) -> str:
@@ -196,14 +215,29 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=sorted(ARCHS))
     ap.add_argument("--shape", choices=sorted(SHAPES))
+    ap.add_argument("--mesh", default=MESH, choices=[MESH, "single", "multi"])
+    ap.add_argument("--out", default=None,
+                    help="the dry run's records (default dryrun.OUT_DIR)")
     args = ap.parse_args(argv)
-    recs = [walk_cell(arch, shape)
-            for arch in ([args.arch] if args.arch else ARCHS)
-            for shape in ([args.shape] if args.shape else SHAPES)]
-    print(f"One NVIDIA H100 SXM5 80GB (data sheet, 700 W): "
+    if args.mesh == MESH:
+        recs = [walk_cell(arch, shape)
+                for arch in ([args.arch] if args.arch else ARCHS)
+                for shape in ([args.shape] if args.shape else SHAPES)]
+        where = "One NVIDIA H100 SXM5 80GB"
+        counted = "counts from a walk on the meta device"
+    else:
+        recs = [r for r in load(args.mesh, args.out)
+                if args.arch in (None, r["arch"])
+                and args.shape in (None, r["shape"])]
+        chips = {r["chips"] for r in recs if "chips" in r}
+        where = (f"{'/'.join(map(str, sorted(chips))) or 'No'} NVIDIA H100 "
+                 f"SXM5 80GB ({args.mesh})")
+        counted = ("one rank's counts from the dry run's walks on the meta "
+                   "device (launch.dryrun); the collective term at NVLink's "
+                   "rate on every axis")
+    print(f"{where} (data sheet, 700 W): "
           f"{PEAK_FLOPS / 1e12:.1f} TFLOP/s bf16, {HBM_BW / 1e12:.2f} TB/s "
-          f"HBM3, NVLink {LINK_BW / 1e9:.0f} GB/s a direction; counts from "
-          "a walk on the meta device")
+          f"HBM3, NVLink {LINK_BW / 1e9:.0f} GB/s a direction; {counted}")
     print("\n### Walk table\n")
     print(dryrun_table(recs))
     print("\n### Roofline table\n")

@@ -67,6 +67,28 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
            or m == "repro" or m.startswith("repro.")]
     assert bad == []
     assert {"repro_torch.launch.host_collectives"} <= set(modules)
+    assert "repro_torch.launch.dryrun" in modules
+
+
+def test_dry_run_imports_no_jax_and_starts_no_process_group():
+    """``launch.dryrun`` imports neither JAX nor the reference, and
+    importing it initialises no process group (its CLI builds its own
+    ``fake`` group)."""
+    code = (
+        "import json, sys\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch.launch import dryrun\n"
+        "assert callable(dryrun.run_cell) and callable(dryrun.main)\n"
+        "assert not dist.is_initialized()\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=_env(PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded if m == "jax" or m.startswith(("jax.", "jaxlib"))
+           or m == "repro" or m.startswith("repro.")]
+    assert bad == []
 
 
 def test_rank_code_imports_no_jax_and_no_reference():

@@ -20,6 +20,12 @@ tensor``:
 The repair gathers that dimension first; the kernels then run every head
 on each rank (``sharding.split_elems`` drops "model").
 
+Rank 0 also counts the collectives of one qwen2.5-3b prefill by kind
+(``CommDebugMode``), and the dry run's walk of the same call on torch's
+``fake`` group of 4 (``tests/torch_production_walk.py heads``) must count
+the same (ROADMAP C-F7: before the repair the walk missed every
+collective DTensor issues inside an op).
+
 One module-scoped spawn (``launch.mesh.run_ranks``) of 4 ranks runs the
 checks of ``tests/torch_dist_ranks.py`` on the (1, 4) mesh; this process
 computes the reference's answers first, from the same replaced
@@ -35,6 +41,11 @@ bit, in fp32 and bf16.
 """
 
 import dataclasses
+import importlib.util
+import json
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -80,7 +91,7 @@ def spawned(tmp_path_factory):
         want[label] = (logits, greedy)
     chunk = SyntheticTokens(256, seed=5).batch(4, 17)
     batch = {"tokens": chunk[:, :-1], "labels": chunk[:, 1:]}
-    payload = {"mesh": (1, 4), "lm": lm,
+    payload = {"mesh": (1, 4), "lm": lm, "collectives": "qwen2.5-3b",
                "ssm_step": {"replace": SSM_WIDE, "batch": batch},
                "ckpt": ckpt_payload(tmp_path_factory.mktemp("ckpt"), SSM)}
     results = run_ranks(ranks.checks, WORLD, payload, device="cpu",
@@ -118,6 +129,39 @@ def test_the_head_split_gathers_where_model_does_not_divide(spawned):
     SSM's ``train(mesh=)`` may or may not, by DTensor's strategy."""
     for name in [f"lm {label}" for label in LM_CASES] + ["ssm_step"]:
         assert _got(spawned, name)["head_gathers"] > 0, name
+
+
+# CommDebugMode's op names → the walk's collective kinds
+_KINDS = {"all_reduce": "all-reduce", "all_gather_into_tensor": "all-gather",
+          "reduce_scatter_tensor": "reduce-scatter",
+          "all_to_all_single": "all-to-all",
+          "shard_dim_alltoall": "all-to-all"}
+
+
+def test_dry_run_walk_counts_the_prefill_collectives(spawned):
+    """(d): the walk of rank 0's prefill on a fake world of 4 at (1, 4)
+    counts its collectives by kind as the gloo run counted them."""
+    if importlib.util.find_spec(
+            "torch.testing._internal.distributed.fake_pg") is None:
+        pytest.skip("this torch has no fake process group")
+    ran = {}
+    for op, n in _got(spawned, "collectives").items():
+        kind = _KINDS.get(op.rsplit(".", 1)[-1], op)
+        ran[kind] = ran.get(kind, 0) + n
+    case = spawned[2]["lm"]["qwen2.5-3b"]
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(here.parent / "src"),
+                                         env.get("PYTHONPATH", "")])
+    arg = json.dumps({"arch": case["arch"], "replace": case["replace"],
+                      "tokens": list(case["tokens"].shape),
+                      "max_len": case["max_len"]})
+    run = subprocess.run([sys.executable, str(here / "torch_production_walk.py"),
+                          "heads", arg], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-4000:]
+    walked = json.loads(run.stdout.strip().splitlines()[-1])
+    assert ran and walked == ran
 
 
 def test_every_rank_holds_the_same_logits(spawned):

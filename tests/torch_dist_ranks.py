@@ -201,6 +201,22 @@ def _lm_steps(mesh, case: dict) -> dict:
             "embed_placements": str(list(params.embed.placements))}
 
 
+def _prefill_collectives(mesh, case: dict) -> dict:
+    """The collectives one fp32 prefill of ``case`` runs on this rank
+    (``make_prefill_step``), by op, as ``CommDebugMode`` counts them:
+    what a walk of the same call (``launch.dryrun``) must count."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    cfg = dataclasses.replace(get_arch(case["arch"]).reduced(),
+                              **case.get("replace", {}))
+    api = get_model(cfg)
+    params = lm_from_numpy(cfg, case["params"], torch.float32, "cpu")
+    shp.place_params(params, shp.param_shardings(params, cfg, mesh))
+    batch = {"tokens": _data(case["tokens"], mesh)}
+    with shp.activate(mesh), torch.no_grad(), CommDebugMode() as comm:
+        make_prefill_step(api, case["max_len"])(params, batch)
+    return {str(op): n for op, n in comm.get_comm_counts().items()}
+
+
 def _train(mesh, replace: dict | None) -> dict:
     with reduced_arch("mamba2-130m", replace), \
             counted_head_gathers() as gathers:
@@ -438,6 +454,9 @@ def checks(rank: int, world: int, payload: dict) -> dict:
         runs["ssm_step"] = lambda: _ssm_step(mesh, payload["ssm_step"])
     for label, case in payload["lm"].items():
         runs[f"lm {label}"] = lambda case=case: _lm_steps(mesh, case)
+    if "collectives" in payload:
+        runs["collectives"] = lambda: _prefill_collectives(
+            mesh, payload["lm"][payload["collectives"]])
     for dtype in DTYPES:
         runs[f"ckpt {dtype}"] = lambda dtype=dtype: _ckpt(
             mesh, payload["ckpt"], dtype)

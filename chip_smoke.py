@@ -9,11 +9,14 @@ serve driver and recovery, RIBBON's own search over the FCFS pool
 simulator for the paper's five models, its load-change adaptation (paper
 §5.5) over the simulator's warm, routed and telemetry lanes, a streamed
 million-query evaluation, the scenario engine's episodes, RIBBON over
-H100 serving cells, the serving paths of eight LMs at full width and
-depth (qwen2.5-3b, dense GQA, with a bf16 and with an int8 KV cache;
+H100 serving cells, the serving paths of the ten LMs of the registry at
+full width (qwen2.5-3b, dense GQA, with a bf16 and with an int8 KV cache;
 mamba2-130m, Mamba-2 SSM; zamba2-2.7b, Mamba-2 with a shared attention
-block; minicpm3-4b, MLA; olmoe-1b-7b, MoE; internvl2-1b, a VLM's patch
-prefix; whisper-tiny, encoder-decoder), and the training path of
+block, also with a prompt longer than its window; minicpm3-4b, MLA;
+olmoe-1b-7b, MoE; internvl2-1b, a VLM's patch prefix; whisper-tiny,
+encoder-decoder; qwen2-7b, G 7; stablelm-3b, MHA at D 80; mixtral-8x22b,
+top-2 MoE cut to 2 layers, with a prompt longer than its window), and
+the training path of
 mamba2-130m and internvl2-1b at full width and depth, in phases that each
 print a line and raise on failure:
 
@@ -130,7 +133,14 @@ print a line and raise on failure:
    2048 and 2096 for the SSM, hybrid, MLA and MoE LMs, so the SSM LMs'
    plain path runs the reference's 256-token chunks; 256 patches and 1792
    tokens, 2096, for internvl2-1b; 1500 frames and 400 tokens, 448, for
-   whisper-tiny), prefill then 48 greedy decode steps.
+   whisper-tiny), prefill then 48 greedy decode steps; qwen2-7b and
+   stablelm-3b as qwen2.5-3b, 16 steps; the window that binds, B 1, a
+   4608-token prompt (max_len 4672) into the 4096-slot ring of the
+   window, 64 steps each over the full, wrapped ring: mixtral-8x22b at
+   full width cut to 2 layers, zamba2-2.7b at full depth (the ring's
+   positions and slots gated after the prefill and after the last step:
+   exactly the last 4096 positions, p in slot p mod 4096; the oldest and
+   newest printed).
    First in fp32, the kernel path against the plain path teacher-forced on
    the kernel path's tokens (prefill and every step's logits within 1e-4 x
    max |logits|, the same greedy tokens); then in bf16, the reference's
@@ -138,11 +148,13 @@ print a line and raise on failure:
    of the second, the kernel path's agreement with the plain path's greedy
    tokens, and each bf16 path's agreement with the fp32 kernel path's
    tokens (printed); then device-only prefill and decode-step times from
-   CUDA graphs.  For the SSM and hybrid LMs the fp32 gate widens by the
-   plain path's own distance from a run whose scan is float64; for the MoE
-   LM the plain path runs the kernel path's expert picks (``RoutingTape``;
-   the tokens whose own picks differ are counted); its bf16 serving holds
-   every MoE router in float32;
+   CUDA graphs (the qwen2-7b, stablelm-3b and windowed runs keep the
+   gates and leave out the agreements and the CUDA graphs, for the
+   smoke's time).  For the SSM and hybrid LMs the fp32 gate widens by the
+   plain path's own distance from a run whose chunked scan is float64;
+   for the MoE LMs the plain path runs the kernel path's expert picks
+   (``RoutingTape``; the tokens whose own picks differ are counted); their
+   bf16 serving holds every MoE router in float32;
 8b. training (``repro_torch.launch``), mamba2-130m (the SSD-scan kernel)
    and internvl2-1b (flash attention; its Qwen2-0.5B backbone on tokens
    alone) at full width and depth, random weights from seed 0, B 4 x S
@@ -167,8 +179,9 @@ print a line and raise on failure:
    leaf's sharding replicated; launches held as 8b holds them;
 11. the roofline (``repro_torch.roofline``) of every path phases 8 and 8b
    time, walked on the meta device with the same calls at the same shapes
-   (each LM's bf16 prefill and one decode step, each model's bf16 train
-   step): flops, HBM bytes, compute and memory terms on one H100 beside
+   (each timed LM's bf16 prefill and one decode step, each model's bf16
+   train step) in a CPU process started after phase 2, beside the card's
+   work, and read here: flops, HBM bytes, compute and memory terms on one H100 beside
    the measured time (device-only; training eager), gated: (a) the walk's
    flops on the plain path (``use_kernel=False``) equal
    ``FlopCounterMode``'s for the same call, (b) each kernel's formula at
@@ -194,26 +207,34 @@ print a line and raise on failure:
    C-R31; for "local" the one-rank run takes each MoE layer per data
    shard, as the local layer does, C-R37); then bf16 cut to 8 of its 16
    layers, prefill and decode steps timed, peak memory a rank; (c) mamba2-130m
-   at full width and depth trained on the 4 ranks (B 4 x S 2048): one
-   fp32 ``train(mesh=)`` step against the one-card step and against a
+   at full width trained on the 4 ranks (B 4 x S 2048): cut to 6 layers,
+   one fp32 ``train(mesh=)`` step against the one-card step and against a
    float64 witness of it (loss within 1e-5; each leaf's gradient within
    1e-4 x its max |g| plus twice the one-card step's own distance from
-   the witness, phase 8b's rule), then 1 bf16 step timed; (b') the 4
+   the witness, phase 8b's rule), then 1 bf16 step at full depth timed;
+   (b') the 4
    ranks on a (1, 4) mesh, whose "model" axis does not divide the 2 KV
    heads (``sharding.split_heads`` gathers them, ROADMAP C-F6), serve
    qwen2.5-3b at full width in fp32 cut to 4 layers, prefill 4 x 2048
    and 8 decode steps within 1e-4 x max |logits| of the one-rank run
-   with the same greedy tokens; (c') mamba2-130m at full width cut to 4
+   with the same greedy tokens; (b'') on the same (1, 4) mesh, zamba2-2.7b
+   at full width in fp32 cut to its first 6 Mamba-2 layers and the shared
+   block, prefill 4 x 2048 and 8 decode steps, each step's Mamba-2 layers
+   on each rank's 20 of the 80 SSM heads with in_proj and out_proj split
+   over "model" (ROADMAP F-6a), within 1e-4 x max |logits| of the
+   one-rank run with the same greedy tokens, the state split by heads,
+   its staged collectives printed by kind; (c') mamba2-130m at full width cut to 4
    layers, bf16 ``train(mesh=)`` on the (2, 2) mesh, B 4 x S 512: 4
    steps with a checkpoint at steps 2 and 4 (each sharded leaf gathered,
    rank 0 writes), the step-4 one removed as if the run had been cut
    after step 2, then a resume for 2 more, bit for bit against the
    4-step run (losses, parameters, AdamW state), the gather's bytes and
    the save and restore times printed; (d) the multi-pod dry run
-   (``launch.dryrun``) in a subprocess on the CPU: (b')'s calls at
-   (b')'s configuration, layers, batch, prompt and steps walked on the
-   meta device over torch's fake group of 4 at (1, 4), its collectives
-   by kind equal to those rank 0 staged through host memory in (b');
+   (``launch.dryrun``) in a subprocess on the CPU: (b')'s and (b'')'s
+   calls at their configurations, layers, batch, prompt and steps walked
+   on the meta device over torch's fake group of 4 at (1, 4), each one's
+   collectives by kind equal to those rank 0 staged through host memory
+   in it;
    then qwen2.5-3b's ``decode_32k`` cell at the (16, 16) and
    (2, 16, 16) production meshes (fake groups of 256 and 512): per-device
    flops, bytes, collective bytes, the dominant term, the walk's
@@ -263,8 +284,8 @@ decode-attention launch per layer per step; mamba2-130m: one SSD-scan
 launch per layer per prefill; zamba2-2.7b: one SSD-scan launch per Mamba-2
 layer and one flash-attention launch per shared-block use per prefill, one
 decode-attention launch per shared-block use per step; qwen2.5-3b with the
-int8 cache as without; minicpm3-4b: one flash-attention launch per layer
-per prefill, none in a step (MLA decodes in latent space, as the
+int8 cache as without, qwen2-7b, stablelm-3b and mixtral-8x22b alike;
+minicpm3-4b: one flash-attention launch per layer per prefill, none in a step (MLA decodes in latent space, as the
 reference, with no kernel); olmoe-1b-7b and internvl2-1b: one flash launch
 per layer per prefill and one decode launch per layer per step;
 whisper-tiny: per prefill one flash launch per encoder layer and two per
@@ -434,7 +455,14 @@ FLASH_CASES = [("prefill", 4, 2000, 16, 2, 128, True, 0, 2000),
                 0, 2048),
                ("whisper encoder", 4, 1500, 6, 6, 64, False, 0, 1500),
                ("cross S 400 T 1500", 4, 400, 6, 6, 64, False, 0, 1500),
-               ("internvl2 G 7", 4, 2048, 14, 2, 64, True, 0, 2048)]
+               ("internvl2 G 7", 4, 2048, 14, 2, 64, True, 0, 2048),
+               ("qwen2-7b G 7 D 128", 4, 2000, 28, 4, 128, True, 0, 2000),
+               ("stablelm-3b MHA D 80", 4, 2000, 32, 32, 80, True, 0, 2000),
+               # a window that binds: S 4608 against a window of 4096
+               ("S 4608 zamba2 window 4096", 1, 4608, 32, 32, 80, True, 4096,
+                4608),
+               ("S 4608 mixtral G 6 window 4096", 1, 4608, 48, 8, 128, True,
+                4096, 4608)]
 # (label, B, T, KH, G, D, empty slots: "tail", "head" or "all", how many;
 # or "wrap": a ring whose first n slots hold its newest positions)
 DECODE_CASES = [("decode", 4, 2048, 2, 8, 128, "tail", 48),
@@ -452,7 +480,13 @@ DECODE_CASES = [("decode", 4, 2048, 2, 8, 128, "tail", 48),
                ("16 splits, 8 empty", 1, 4096, 1, 8, 128, "tail", 2000),
                ("G 32", 1, 500, 1, 32, 64, "head", 10),
                ("G 7, T 2096", 4, 2096, 2, 7, 64, "tail", 48),
-               ("cross T 1500 all valid", 4, 1500, 6, 1, 64, "tail", 0)]
+               ("cross T 1500 all valid", 4, 1500, 6, 1, 64, "tail", 0),
+               ("qwen2-7b G 7 D 128", 4, 2048, 4, 7, 128, "tail", 32),
+               ("stablelm-3b KH 32 D 80", 4, 2048, 32, 1, 80, "tail", 32),
+               # the window's full ring after 64 steps past a 4608-token
+               # prompt: slots 0-575 hold positions 4096-4671
+               ("ring 4096 zamba2 G 1 D 80", 1, 4096, 32, 1, 80, "wrap", 576),
+               ("ring 4096 mixtral G 6", 1, 4096, 8, 6, 128, "wrap", 576)]
 # SSD scan vs its plain version (the token-by-token recurrence), relative
 # to max |want|.  fp32: the two sum the same fp32 products in another
 # order (the kernel's running sum of dt·A is fp64): 9.2e-7 seen; a chunk
@@ -472,7 +506,8 @@ SSD_CASES = [("mamba2-130m prefill", 4, 2048, 24, 64, 1, 128, True),
              ("ragged L 2000", 2, 2000, 8, 64, 1, 128, False),
              ("L 1", 2, 1, 8, 64, 1, 128, False),
              ("G 2, H 8", 2, 300, 8, 64, 2, 64, False),
-             ("P 80, N 32", 1, 130, 4, 80, 1, 32, False)]
+             ("P 80, N 32", 1, 130, 4, 80, 1, 32, False),
+             ("zamba2-2.7b window L 4608", 1, 4608, 80, 64, 1, 64, True)]
 # fp32 kernel path vs plain path, x max |logits|; for the SSM and hybrid
 # LMs widened by the plain path's own distance from its scan in float64,
 # measured in the same run (see lm_fp32): at zamba2-2.7b's 54 layers each
@@ -484,7 +519,10 @@ class LMRun(NamedTuple):
     """One LM's serving run and the kernel launches each prefill and each
     decode step must make on its kernel path.  ``extra`` rows of patch
     (VLM) or frame (encoder-decoder) embeddings are drawn from the run's
-    seed; ``changes`` are (field, value) changes to the configuration."""
+    seed; ``changes`` are (field, value) changes to the configuration.  A
+    run that is not ``timed`` keeps every gate but leaves out what is only
+    printed: the agreement passes, the device-only (CUDA graph) times and
+    phase 11's walk."""
     arch: str
     batch: int
     prompt: int
@@ -494,10 +532,17 @@ class LMRun(NamedTuple):
     per_step: dict
     extra: int = 0
     changes: tuple = ()
+    timed: bool = True
 
     @property
     def label(self) -> str:
-        return self.arch + "".join(f"-{k}" for k, _ in self.changes)
+        """The arch and the changed fields, and the batch and prompt where
+        an earlier run has the same arch and changes."""
+        name = self.arch + "".join(f"-{k}" for k, _ in self.changes)
+        first = next(r for r in LM_RUNS
+                     if (r.arch, r.changes) == (self.arch, self.changes))
+        return name if first == self else \
+            f"{name} {self.batch} x {self.prompt}"
 
 
 LM_RUNS = [
@@ -521,6 +566,23 @@ LM_RUNS = [
     # cross attention through decode_attention in each step
     LMRun("whisper-tiny", 4, 400, 448, 48,
           {"flash_attention": 12}, {"decode_attention": 8}, extra=1500),
+    # the registry's last three architectures (ROADMAP F-1, F-3), 16 steps
+    # and untimed (the smoke's time limit): qwen2-7b, G 7 at D 128;
+    # stablelm-3b, MHA at D 80; mixtral-8x22b at full width cut to 2 of its
+    # 56 layers (8 experts of 6144 x 16384, top 2: 9.7 GB a layer in fp32),
+    # at the windowed shape below
+    LMRun("qwen2-7b", 4, 2000, 2048, 16,
+          {"flash_attention": 28}, {"decode_attention": 28}, timed=False),
+    LMRun("stablelm-3b", 4, 2000, 2048, 16,
+          {"flash_attention": 32}, {"decode_attention": 32}, timed=False),
+    # a window that binds (F-2): B 1, a 4608-token prompt into the ring of
+    # the 4096-token window, then 64 steps, each over a full, wrapped ring
+    LMRun("mixtral-8x22b", 1, 4608, 4672, 64,
+          {"flash_attention": 2}, {"decode_attention": 2},
+          changes=(("n_layers", 2),), timed=False),
+    LMRun("zamba2-2.7b", 1, 4608, 4672, 64,
+          {"ssd_scan": 54, "flash_attention": 9}, {"decode_attention": 9},
+          timed=False),
 ]
 
 # Training (slice 12): each model at full width and depth, B 4 x S 2048
@@ -2229,28 +2291,11 @@ def _lm_gate(name: str, got, want, tol: float) -> float:
     return rel
 
 
-def _scan_fp64(x, dt, a_log, b, c, chunk=None):
-    """The SSD scan token by token in float64 (``chunk`` is ignored): the
-    exact side of the plain path's own rounding error."""
-    h = x.shape[2]
-    decay = torch.exp(dt.double() * -torch.exp(a_log.double()))
-    xdt = x.double() * dt.double()[..., None]
-    bh, ch = per_head(b.double(), h, 2), per_head(c.double(), h, 2)
-    state = torch.zeros((x.shape[0], h, x.shape[3], b.shape[3]),
-                        dtype=torch.float64, device=x.device)
-    ys = []
-    for t in range(x.shape[1]):
-        state = (state * decay[:, t, :, None, None]
-                 + xdt[:, t, :, :, None] * bh[:, t, :, None, :])
-        ys.append(torch.einsum("bhpn,bhn->bhp", state, ch[:, t]))
-    return torch.stack(ys, dim=1).to(x.dtype), state.float()
-
-
 def _chunked_fp64(x, dt, a_log, b, c, chunk):
     """``ssm.ssd_chunked``'s math in float64 throughout, y cast back to x's
-    type: the exact side of the plain path's own rounding that autograd
-    can differentiate (the token-by-token ``_scan_fp64`` would keep 2048
-    states a layer for its backward)."""
+    type, the final state to float32: the exact side of the plain path's
+    own rounding (float64 rounds 2^29 times finer than float32), which
+    autograd can differentiate."""
     f = torch.float64
     bsz, slen, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
@@ -2279,11 +2324,11 @@ def _chunked_fp64(x, dt, a_log, b, c, chunk):
 
 
 @contextmanager
-def plain_scan_in_fp64(scan=_scan_fp64):
-    """Within: the plain path's scan (``ssm.ssd_chunked``) is ``scan``, a
-    float64 form; nothing else of the path changes."""
+def plain_scan_in_fp64():
+    """Within: the plain path's scan (``ssm.ssd_chunked``) is
+    ``_chunked_fp64``; nothing else of the path changes."""
     chunked = ssm_module.ssd_chunked
-    ssm_module.ssd_chunked = scan
+    ssm_module.ssd_chunked = _chunked_fp64
     try:
         yield
     finally:
@@ -2379,6 +2424,10 @@ def lm_fp32(api, params, batch, prefill_step, run: LMRun):
             raise AssertionError(f"LM prefill logits "
                                  f"{tuple(logits['kernel'][0].shape)}")
         tok = _greedy(logits["kernel"][0])
+        # the decoder's positions: a VLM's patches go in front of its
+        # tokens, whisper's frames to its encoder
+        seq = run.prompt + (run.extra if api.cfg.family == "vlm" else 0)
+        wraps = [ring_wrap(caches["kernel"], seq)]
         for _ in range(run.steps):
             for name in names:
                 with routing(name):
@@ -2387,6 +2436,7 @@ def lm_fp32(api, params, batch, prefill_step, run: LMRun):
                         use_kernel=name == "kernel")
                 logits[name].append(out)
             tok = _greedy(logits["kernel"][-1])
+        wraps.append(ring_wrap(caches["kernel"], seq + run.steps))
 
     def farthest(a, b):
         return max(_rel(x, y) for x, y in zip(logits[a], logits[b]))
@@ -2409,7 +2459,38 @@ def lm_fp32(api, params, batch, prefill_step, run: LMRun):
                 f"|diff| {worst:.3g} x max |logits| (gate {LM_TOL} + "
                 f"{noise:.3g}){exact}; the same greedy tokens at all "
                 f"{run.steps + 1} positions")
+    window = api.cfg.sliding_window
+    if bool(window and seq > window) != all(wraps):
+        raise AssertionError(f"{run.label}: window {window}, {seq} "
+                             f"positions, ring wraps {wraps}")
+    if all(wraps):
+        phase("lm", f"{run.label}, a window of {window}: the prefill's flash "
+                    f"attention lets through "
+                    f"{op_walk.attention_pairs(seq, seq, True, window):,} of "
+                    f"the {op_walk.attention_pairs(seq, seq, True, 0):,} "
+                    f"causal (query, key) pairs of its {seq} positions; "
+                    f"after the prefill {wraps[0]}; after {run.steps} steps "
+                    f"{wraps[1]} (every step attends over the full ring)")
     return torch.cat([_greedy(out) for out in logits["kernel"]], dim=1)
+
+
+def ring_wrap(cache: dict, t: int) -> str:
+    """After ``t`` positions, where they outnumber the KV ring's W slots:
+    the ring holds exactly positions t - W .. t - 1, position p in slot
+    p mod W (else AssertionError); its oldest and newest positions with
+    their slots, as text.  "" where the ring did not wrap."""
+    w = cache["pos"].shape[0] if "pos" in cache else t
+    if t <= w:
+        return ""
+    held = cache["pos"].long().cpu()
+    want = torch.arange(t - w, t)
+    if not torch.equal(held[want % w], want):
+        raise AssertionError(f"KV ring after {t} positions holds "
+                             f"{held.min().item()}..{held.max().item()}, "
+                             f"expected {t - w}..{t - 1}")
+    return (f"the ring of {w} slots holds positions {t - w}-{t - 1}: the "
+            f"oldest, {t - w}, in slot {(t - w) % w}, the newest, {t - 1}, "
+            f"in slot {(t - 1) % w}")
 
 
 def lm_serve(params, batch, prefill_step, serve_step, steps: int):
@@ -2462,23 +2543,27 @@ def lm_phase(api, params, batch, run: LMRun) -> dict:
     prefill_ms, step_ms, served = runs[-1]
     if not torch.equal(runs[0][2], served):
         raise AssertionError("LM bf16: two serving runs gave other tokens")
-    agree = lm_agreement(api, params, batch, served, run)
-    kern32, plain32 = (lm_agreement(api, params, batch, fp32_tokens, run,
-                                    use_kernel=k) for k in (True, False))
+    agreement = ""
+    if run.timed:
+        agree = lm_agreement(api, params, batch, served, run)
+        kern32, plain32 = (lm_agreement(api, params, batch, fp32_tokens,
+                                        run, use_kernel=k)
+                           for k in (True, False))
+        agreement = (f"; kernel path agrees with the plain path on "
+                     f"{agree:.4f} of {served.numel()} greedy tokens; of the "
+                     f"fp32 kernel path's greedy tokens, fed the same "
+                     f"prefixes, the bf16 kernel path picks {kern32:.4f} and "
+                     f"the bf16 plain path {plain32:.4f} (printed, not "
+                     "gated)")
     router = (f"; its {len(routers)} MoE routers stay float32"
               if routers else "")
     phase("lm", f"{run.label} bf16 serving (second of 2 runs, eager): "
                 f"prefill {prefill_ms:.2f} ms for {run.batch} x {run.prompt} "
                 f"tokens{_extra_text(run)}, decode {step_ms:.3f} ms per step = "
-                f"{run.batch * 1e3 / step_ms:.1f} tokens/s; kernel path "
-                f"agrees with the plain path on {agree:.4f} of "
-                f"{served.numel()} greedy tokens; of the fp32 kernel path's "
-                f"greedy tokens, fed the same prefixes, the bf16 kernel path "
-                f"picks {kern32:.4f} and the bf16 plain path {plain32:.4f} "
-                f"(printed, not gated){router}")
-    # kernel-path runs: the fp32 comparison, the bf16 serving runs and the
-    # bf16 kernel path's agreement with the fp32 tokens
-    n_runs = 1 + len(runs) + 1
+                f"{run.batch * 1e3 / step_ms:.1f} tokens/s{agreement}{router}")
+    # kernel-path runs: the fp32 comparison, the bf16 serving runs and, in
+    # a timed run, the bf16 kernel path's agreement with the fp32 tokens
+    n_runs = 1 + len(runs) + run.timed
     return {"prefills": n_runs, "steps": n_runs * run.steps,
             "prefill_ms": prefill_ms, "step_ms": step_ms}
 
@@ -2549,7 +2634,7 @@ def lm_path(run: LMRun) -> dict:
     per step, and the attention kernels' counts by type to the fp32 run's
     1 prefill and ``run.steps`` steps, the rest bf16.  Returns the counts,
     the attention kernels' counts by type and the bf16 device-only ms of a
-    prefill and a decode step."""
+    prefill and a decode step (None for a run that is not timed)."""
     api = get_model(dataclasses.replace(get_arch(run.arch),
                                         **dict(run.changes)))
     cfg = api.cfg
@@ -2562,6 +2647,7 @@ def lm_path(run: LMRun) -> dict:
         extra = torch.randn((run.batch, run.extra, cfg.d_model),
                             generator=gen, device="cuda") * 0.02
     batch = {"tokens": tokens, "extra": extra}
+    t0 = time.perf_counter()
     n_params = sum(p.numel() for p in params.parameters()) + sum(
         b.numel() for b in params.buffers())
     phase("lm", f"{run.label}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
@@ -2595,7 +2681,10 @@ def lm_path(run: LMRun) -> dict:
         for name, per in per_unit.items()) + "; no other kernel" + "".join(
             f"; {name} by type {c}" for name, c in by_dtype.items()
             if any(c.values())))
-    device_ms = lm_device_phase(api, params, batch, lm, run)
+    device_ms = (lm_device_phase(api, params, batch, lm, run) if run.timed
+                 else None)
+    phase("lm", f"{run.label}: {time.perf_counter() - t0:.1f} s from its "
+                "weights drawn to here (host clock)")
     del params, batch
     torch.cuda.empty_cache()
     return counts, by_dtype, device_ms
@@ -2665,7 +2754,7 @@ def train_fp32_gate(arch: str, kernel: str) -> None:
             api, loss=partial(api.loss, use_kernel=name == "kernel")), 1)
         p = copies.pop(name)
         opt = adamw.init(dict(p.named_parameters()))
-        scan = plain_scan_in_fp64(_chunked_fp64) if name == "fp64 scan" \
+        scan = plain_scan_in_fp64() if name == "fp64 scan" \
             else nullcontext()
         with scan:
             _, opt, metrics = step(p, opt, batch)
@@ -3020,42 +3109,110 @@ def _train_walk(arch: str):
     return acc
 
 
-def roofline_phase(lm_ms: dict, runs: dict) -> None:
+def roofline_walks() -> dict:
+    """Phase 11's walks on meta, in a CPU process of its own
+    (``start_roofline_walks``): gate (b), then the counts of each timed LM
+    run's bf16 prefill and decode step and of each 8b model's bf16 train
+    step, with gate (a) on each; the counts by path."""
+    _formula_gate()
+    out = {}
+    for run in LM_RUNS:
+        if run.timed:
+            for call, acc in _lm_walks(run).items():
+                out[f"{run.label} {call}"] = acc.to_dict()
+    for arch, _ in TRAIN_RUNS:
+        out[f"train {arch} step"] = _train_walk(arch).to_dict()
+    return out
+
+
+class CpuProcess:
+    """Python ``code`` run in a subprocess on the CPU (no card visible to
+    it), beside the card's work, from its start (``t0``, host clock).  Its
+    output and its errors go to unnamed files in the checkout's
+    ``chiprun_out/``, not to pipes: a pipe read only at the end could fill
+    and stop it."""
+
+    def __init__(self, code: str, *args: str):
+        out_dir = Path(__file__).resolve().parent / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        self.out, self.err = (tempfile.TemporaryFile("w+", dir=out_dir)
+                              for _ in range(2))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", code, *args], cwd=out_dir.parent,
+            stdout=self.out, stderr=self.err,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+        self.t0 = time.perf_counter()
+
+    def result(self, name: str, timeout: float) -> tuple[list, object]:
+        """Wait for the process (at most ``timeout`` s): the lines of its
+        output but the last, and the last read as JSON.  Raises with the
+        end of its errors where it failed."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        finally:
+            self.stop()
+        self.out.seek(0)
+        self.err.seek(0)
+        out, err = self.out.read(), self.err.read()
+        self.out.close()
+        self.err.close()
+        if rc != 0:
+            raise AssertionError(f"{name}: {err[-3000:]}")
+        *lines, last = out.strip().splitlines()
+        return lines, json.loads(last)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def start_roofline_walks() -> CpuProcess:
+    """``roofline_walks`` started in a CPU subprocess, so that the walks
+    run beside the card's work."""
+    return CpuProcess("import json, chip_smoke; print(json.dumps("
+                      "chip_smoke.roofline_walks()))")
+
+
+def roofline_phase(lm_ms: dict, runs: dict, walks: CpuProcess) -> None:
     """Phase 11: each timed path's roofline terms on one H100 beside its
     measured time (device-only for the LM calls, eager for the training
-    steps), with gates (a)-(c).  The memory term counts every eager op's
-    operands from device memory; it is printed, not gated."""
-    t0 = time.perf_counter()
-    _formula_gate()
-    paths = []
-    for run in LM_RUNS:
-        for call, acc in _lm_walks(run).items():
-            paths.append((f"{run.label} {call}", acc, lm_ms[run.label][call],
-                          "device-only"))
-    for arch, _ in TRAIN_RUNS:
-        paths.append((f"train {arch} step", _train_walk(arch),
-                      runs[arch]["step_ms"], "eager"))
+    steps), with gates (a)-(c), from the walks ``start_roofline_walks``
+    started.  The memory term counts every eager op's operands from device
+    memory; it is printed, not gated."""
+    lines, walked = walks.result("roofline walks", 900)
+    for line in lines:
+        print(line, flush=True)
+    measured = {f"{run.label} {call}": (lm_ms[run.label][call],
+                                        "device-only")
+                for run in LM_RUNS if run.timed
+                for call in ("prefill", "decode step")}
+    measured |= {f"train {arch} step": (runs[arch]["step_ms"], "eager")
+                 for arch, _ in TRAIN_RUNS}
     below = []
-    for label, acc, ms, how in paths:
-        terms = RooflineTerms(acc.flops, acc.hbm_bytes,
-                              acc.collective_wire_bytes, 1)
-        typed = typed_compute_s(acc.flops_by_dtype)
-        phase("roofline", f"{label}: {acc.flops:.4g} flop "
-                          f"({', '.join(f'{k} {v:.3g}' for k, v in acc.flops_by_dtype.items())}), "
-                          f"{acc.hbm_bytes / 1e9:.4g} GB, {acc.n_ops} ops; "
-                          f"compute {terms.compute_s * 1e3:.4f} ms (fp32 "
+    for label, (ms, how) in measured.items():
+        acc = walked[label]
+        terms = RooflineTerms(acc["flops"], acc["hbm_bytes"],
+                              acc["collective_wire_bytes"], 1)
+        by_dtype = acc["flops_by_dtype"]
+        typed = typed_compute_s(by_dtype)
+        phase("roofline", f"{label}: {acc['flops']:.4g} flop "
+                          f"({', '.join(f'{k} {v:.3g}' for k, v in by_dtype.items())}), "
+                          f"{acc['hbm_bytes'] / 1e9:.4g} GB, {acc['n_ops']} "
+                          f"ops; compute {terms.compute_s * 1e3:.4f} ms (fp32 "
                           f"products at 67 TFLOP/s: {typed * 1e3:.4f}), memory "
                           f"{terms.memory_s * 1e3:.4f} ms, {terms.dominant}; "
                           f"measured {ms:.4f} ms ({how}) = "
                           f"{ms / 1e3 / terms.compute_s:.2f} x compute, "
                           f"{ms / 1e3 / terms.bound_time_s:.2f} x the bound; "
-                          f"kernels {acc.kernels}")
+                          f"kernels {acc['kernels']}")
         if ms / 1e3 < terms.compute_s:
             below.append(label)
-    phase("roofline", f"{len(paths)} paths walked on meta in "
-                      f"{time.perf_counter() - t0:.1f} s (host clock); plain "
-                      "flops equal FlopCounterMode's on every path; "
-                      f"{CARD['smi']}")
+    phase("roofline", f"{len(measured)} paths walked on meta in a CPU "
+                      f"process beside the card's work, "
+                      f"{time.perf_counter() - walks.t0:.1f} s from its "
+                      "start to here (host clock); plain flops equal "
+                      f"FlopCounterMode's on every path; {CARD['smi']}")
     if below:
         raise AssertionError(f"roofline: measured below the compute term on "
                              f"{below}: a count above the card's peak")
@@ -3109,10 +3266,11 @@ def kernel_line(launches: int, worst: float) -> dict:
 
 
 def _valid_pairs(s: int, t: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the masks let through: the work this input needs."""
-    q_pos = torch.arange(s, device="cuda")[:, None]
-    k_pos = torch.arange(t, device="cuda")[None, :]
-    mask = torch.ones((s, t), dtype=torch.bool, device="cuda")
+    """(query, key) pairs the masks let through: the work this input needs
+    (counted on the host, so that phase 11's walks need no card)."""
+    q_pos = torch.arange(s)[:, None]
+    k_pos = torch.arange(t)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool)
     if causal:
         mask &= k_pos <= q_pos
     if window > 0:
@@ -3181,7 +3339,9 @@ def flash_line(launches: int, by_path: dict, by_dtype: dict,
     # the kernel alone at other paths' shapes: zamba2-2.7b's shared block,
     # olmoe-1b-7b's prefill (H = KH 16, D 128), minicpm3-4b's MLA prefill
     # (v padded from 64), the whisper encoder and its cross attention,
-    # internvl2-1b's prefill (G 7, also its training forward)
+    # internvl2-1b's prefill (G 7, also its training forward), qwen2-7b's (G 7,
+    # D 128), stablelm-3b's (MHA, D 80), and the window that binds at S 4608
+    # (zamba2-2.7b's shared block; mixtral-8x22b, G 6 at D 128)
     for key, case in (
             ("zamba2_shape", ("zamba2", 4, 2048, 32, 32, 80, True, 4096,
                               2048)),
@@ -3189,7 +3349,11 @@ def flash_line(launches: int, by_path: dict, by_dtype: dict,
             ("mla_shape", _case(FLASH_CASES, "MLA")),
             ("encoder_shape", _case(FLASH_CASES, "whisper encoder")),
             ("cross_shape", _case(FLASH_CASES, "cross")),
-            ("internvl2_shape", _case(FLASH_CASES, "internvl2"))):
+            ("internvl2_shape", _case(FLASH_CASES, "internvl2")),
+            ("qwen2_7b_shape", _case(FLASH_CASES, "qwen2-7b")),
+            ("stablelm_shape", _case(FLASH_CASES, "stablelm-3b")),
+            ("zamba2_window_shape", _case(FLASH_CASES, "S 4608 zamba2")),
+            ("mixtral_window_shape", _case(FLASH_CASES, "S 4608 mixtral"))):
         label, b, s, h, kh, d, causal, window, t = case
         q, k, v = _flash_inputs(gen, case, torch.bfloat16)
         flops = 4 * d * b * h * _valid_pairs(s, t, causal, window)
@@ -3232,14 +3396,22 @@ def decode_line(launches: int, by_path: dict, by_dtype: dict,
                            "(G 1), last block combines the splits; fp32: "
                            "split + combine kernels, scalar FMAs")
     # the kernel alone at other paths' shapes: zamba2-2.7b's shared block,
-    # internvl2-1b's step (G 7), whisper's cross attention (T 1500 valid)
+    # internvl2-1b's step (G 7), whisper's cross attention (T 1500 valid),
+    # qwen2-7b's step (G 7, D 128), stablelm-3b's (MHA, D 80), and a full
+    # ring of the window that binds (zamba2-2.7b's; mixtral-8x22b's, G 6)
     for key, case in (("zamba2_shape", ("zamba2", 4, 2096, 32, 1, 80, "tail",
                                         48)),
                       ("g7_shape", _case(DECODE_CASES, "G 7")),
-                      ("cross_shape", _case(DECODE_CASES, "cross"))):
-        _, b, t, kh, g, d, _, n_empty = case
+                      ("cross_shape", _case(DECODE_CASES, "cross")),
+                      ("qwen2_7b_shape", _case(DECODE_CASES, "qwen2-7b")),
+                      ("stablelm_shape", _case(DECODE_CASES, "stablelm-3b")),
+                      ("zamba2_window_shape",
+                       _case(DECODE_CASES, "ring 4096 zamba2")),
+                      ("mixtral_window_shape",
+                       _case(DECODE_CASES, "ring 4096 mixtral"))):
+        _, b, t, kh, g, d, _, _ = case
         q, k, v, pos = _decode_inputs(gen, case, torch.bfloat16)
-        n_valid = t - n_empty
+        n_valid = int((pos >= 0).sum())
         line[key] = _kernel_only(
             lambda q=q, k=k, v=v, pos=pos: ops.decode_attention(q, k, v, pos),
             (50, 20), 4 * d * b * kh * g * n_valid,
@@ -3294,10 +3466,13 @@ def ssd_line(launches: int, by_path: dict, by_dtype: dict,
              worst: dict) -> dict:
     """ssd_scan at one layer of mamba2-130m's prefill (B 4, L 2048, H 24,
     P 64, N 128, bf16: the tensor-core kernel), and the same numbers at
-    zamba2-2.7b's (H 80, N 64).  No single PyTorch call computes the SSD
-    scan: library null."""
+    zamba2-2.7b's (H 80, N 64) and at its windowed run's (B 1, L 4608).
+    No single PyTorch call computes the SSD scan: library null."""
     gen = torch.Generator(device="cuda").manual_seed(7)
-    main, other = (_ssd_times(case, gen) for case in SSD_CASES[:2])
+    main, other, window = (_ssd_times(case, gen) for case in (
+        *SSD_CASES[:2], _case(SSD_CASES, "zamba2-2.7b window")))
+    keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "eager_ms",
+            "eager_plain_ms", "flops", "bytes")
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:70",
@@ -3318,9 +3493,8 @@ def ssd_line(launches: int, by_path: dict, by_dtype: dict,
             "eager_library_ms": None,
             "flops": main["flops"], "bytes": main["bytes"],
             "shape": main["shape"],
-            "zamba2_shape": {k: other[k] for k in (
-                "shape", "ms", "plain_ms", "bound_ms", "bound_by", "eager_ms",
-                "eager_plain_ms", "flops", "bytes")}}
+            "zamba2_shape": {k: other[k] for k in keys},
+            "zamba2_window_shape": {k: window[k] for k in keys}}
 
 
 def fcfs_flavour_calls(tos, free0) -> dict:
@@ -3543,20 +3717,22 @@ WARM_ANCHORS = {None: ((6, 0, 1), 3.305), "hedged": ((1, 5, 1), 2.375)}
 # replayed (for the local MoE layer a one-rank run with each MoE layer
 # run per data shard: its capacity counts the shard's tokens, so it drops
 # other pairs than the global layer, C-R37); then bf16 cut to
-# SHARD_BF16_LAYERS layers, timed.  (c): mamba2-130m at full width and
-# depth, B TRAIN_B x S TRAIN_S:
-# one fp32 train() step against the one-card step and against a float64
+# SHARD_BF16_LAYERS layers, timed.  (c): mamba2-130m at full width, B
+# TRAIN_B x S TRAIN_S: cut to SHARD_TRAIN_GATE_LAYERS layers (the phase's
+# time, ROADMAP G-3), one fp32 train() step against the one-card step and
+# against a float64
 # witness of it (the same weights and batch, float64 throughout on the
 # plain path): losses within TRAIN_LOSS_RTOL; each leaf's AdamW first
 # moment (1 - b1)·g, against the one-card step's and against the
 # witness's, within TRAIN_GRAD_TOL x its max widened by phase 8b's rule,
 # twice the one-card step's own distance from the witness, measured here.
-# Then SHARD_TRAIN_STEPS bf16 steps, timed.
+# Then SHARD_TRAIN_STEPS bf16 steps at full depth, timed.
 MESH_RANKS, MESH_SHAPE = 4, (2, 2)
 SHARD_ARCH, SHARD_GATE_LAYERS = "olmoe-1b-7b", 4
 SHARD_B, SHARD_S, SHARD_STEPS = 4, 2048, 8
 SHARD_TOL = 1e-4
 SHARD_TRAIN_ARCH, SHARD_TRAIN_STEPS = "mamba2-130m", 1
+SHARD_TRAIN_GATE_LAYERS = 6
 # (b'): HEADS_ARCH at full width on the same ranks as a HEADS_SHAPE mesh,
 # whose "model" axis does not divide its KV heads, fp32 cut to
 # SHARD_GATE_LAYERS layers: prefill SHARD_B x SHARD_S and SHARD_STEPS
@@ -3569,6 +3745,15 @@ SHARD_TRAIN_ARCH, SHARD_TRAIN_STEPS = "mamba2-130m", 1
 # (phase 8b's way), then a resume for RESUME_AT more, against the first
 # run, bit for bit.
 HEADS_ARCH, HEADS_SHAPE = "qwen2.5-3b", (1, 4)
+# (b''): SSM_ARCH at full width cut to SSM_LAYERS layers (its first
+# attn_every group: 6 Mamba-2 layers and the shared attention block), fp32,
+# on the same ranks as the HEADS_SHAPE mesh, whose "model" axis divides its
+# 80 SSM heads and 32 KV heads: each decode step on the reference's split
+# (ROADMAP F-6a: in_proj column- and out_proj row-parallel, the state by
+# heads), prefill SHARD_B x SHARD_S and SHARD_STEPS steps fed the one-rank
+# run's greedy tokens, within SHARD_TOL x max |logits| of that run with
+# the same greedy tokens
+SSM_ARCH, SSM_LAYERS = "zamba2-2.7b", 6
 RESUME_AT, RESUME_LAYERS, RESUME_S = 2, 4, 512
 # (b)'s bf16 run: olmoe-1b-7b at full width cut to SHARD_BF16_LAYERS of
 # its 16 layers (the phase's time, ROADMAP G-3)
@@ -3738,9 +3923,11 @@ def mesh_settings(device: str = "cuda") -> dict:
     """Phase 12 (b) and (c)'s sizes and device, handed to every rank."""
     return dict(device=device, arch=SHARD_ARCH, gate_layers=SHARD_GATE_LAYERS,
                 b=SHARD_B, s=SHARD_S, steps=SHARD_STEPS,
-                train_arch=SHARD_TRAIN_ARCH, train_b=TRAIN_B,
+                train_arch=SHARD_TRAIN_ARCH,
+                train_gate_layers=SHARD_TRAIN_GATE_LAYERS, train_b=TRAIN_B,
                 train_s=TRAIN_S, train_steps=SHARD_TRAIN_STEPS, smoke=False,
-                changes={}, heads_arch=HEADS_ARCH, resume_at=RESUME_AT,
+                changes={}, heads_arch=HEADS_ARCH, ssm_arch=SSM_ARCH,
+                ssm_layers=SSM_LAYERS, resume_at=RESUME_AT,
                 resume_layers=RESUME_LAYERS, resume_s=RESUME_S,
                 bf16_layers=SHARD_BF16_LAYERS)
 
@@ -3869,12 +4056,21 @@ def _sharded_bf16(mesh, job: dict) -> dict:
             "tokens": _full(tok)}
 
 
+def _gate_train_cfg(job: dict):
+    """(c)'s fp32 gate's configuration: the training architecture cut to
+    ``train_gate_layers`` layers."""
+    return _arch(job, "train_arch", n_layers=min(
+        job["train_gate_layers"], _arch(job, "train_arch").n_layers))
+
+
 def _fp32_train_step(job: dict, **where) -> tuple:
-    """One fp32 train() step of (c) (``where``: the mesh, or the device):
-    the loss and the AdamW first moments, full."""
-    _, opt, losses = train(job["train_arch"], steps=1,
-                           batch_size=job["train_b"], seq_len=job["train_s"],
-                           smoke=job["smoke"], log_every=100, **where)
+    """One fp32 train() step of (c)'s gate (``where``: the mesh, or the
+    device): the loss and the AdamW first moments, full."""
+    with train_config(job["train_arch"], _gate_train_cfg(job)):
+        _, opt, losses = train(job["train_arch"], steps=1,
+                               batch_size=job["train_b"],
+                               seq_len=job["train_s"], smoke=False,
+                               log_every=100, **where)
     return losses[0], {n: _full(t) for n, t in opt.m.items()}
 
 
@@ -3891,7 +4087,7 @@ def float64_throughout():
                                                                 **kwargs)
     torch.Tensor.float = keep64
     try:
-        with plain_scan_in_fp64(_chunked_fp64):
+        with plain_scan_in_fp64():
             yield
     finally:
         torch.Tensor.float = real
@@ -3903,7 +4099,7 @@ def _fp64_train_witness(job: dict) -> tuple:
     the plain path (the kernels take no float64); the loss and (1 - b1)·g,
     the first moments an AdamW step would hold."""
     dev = torch.device(job["device"])
-    api = get_model(_arch(job, "train_arch"))
+    api = get_model(_gate_train_cfg(job))
     gen = torch.Generator(device=dev).manual_seed(0)
     params = make_trainable(api.init_params(gen, torch.float32, dev)).to(
         torch.float64)
@@ -3951,17 +4147,19 @@ def _sharded_train(mesh, job: dict) -> dict:
             "peak_gb": _peak_gb(dev)}
 
 
-def _heads_calls(api, params, mesh, dev, tokens, fed, max_len: int,
-                 full) -> tuple:
-    """(b')'s calls on ``mesh``: the prompt placed, prefill, then one
-    decode step for each token of ``fed``; every logits through ``full``
-    (each a gather of the DTensor) and the cache's k and v placements."""
+def _lm_calls(api, params, mesh, dev, tokens, fed, max_len: int,
+              full) -> tuple:
+    """(b') and (b'')'s calls on ``mesh``: the prompt placed, prefill,
+    then one decode step for each token of ``fed``; every logits through
+    ``full`` (each a gather of the DTensor) and the placements of the
+    cache's k, v and SSM state."""
     with shp.activate(mesh), torch.no_grad():
         tokens = shp.place(tokens.to(dev), shp.data_sharding(tokens.shape,
                                                              mesh))
         cache, last = make_prefill_step(api, max_len)(params,
                                                       {"tokens": tokens})
-        placements = {n: str(list(cache[n].placements)) for n in ("k", "v")}
+        placements = {n: str(list(cache[n].placements))
+                      for n in ("k", "v", "state") if n in cache}
         logits = [full(last)]
         for f in fed:
             out, cache = api.decode_step(params, cache, shp.place(
@@ -3970,16 +4168,26 @@ def _heads_calls(api, params, mesh, dev, tokens, fed, max_len: int,
     return logits, placements
 
 
-def _sharded_heads(mesh, job: dict) -> dict:
-    """(b'): the fp32 gate on the (1, 4) mesh: prefill and decode steps fed
-    the one-rank run's greedy tokens; every logits, the cache's k and v
+# (b') and (b''): the architecture's job key and its depth's
+MESH_LM_CASES = {"heads": ("heads_arch", "gate_layers"),
+               "ssm": ("ssm_arch", "ssm_layers")}
+
+
+def _case_api(job: dict, case: str):
+    arch, layers = MESH_LM_CASES[case]
+    return get_model(_arch(job, arch, n_layers=job[layers]))
+
+
+def _sharded_lm(mesh, job: dict, case: str) -> dict:
+    """(b') or (b''): the fp32 gate on the (1, 4) mesh: prefill and decode
+    steps fed the one-rank run's greedy tokens; every logits, the cache's
     placements."""
-    api = get_model(_arch(job, "heads_arch", n_layers=job["gate_layers"]))
+    api = _case_api(job, case)
     params = _rank_params(api, mesh, torch.float32, False)
     dev = mesh.devices[torch.distributed.get_rank()]
     reset_counts()
-    logits, placements = _heads_calls(
-        api, params, mesh, dev, job["heads_tokens"], job["heads_fed"],
+    logits, placements = _lm_calls(
+        api, params, mesh, dev, job[f"{case}_tokens"], job[f"{case}_fed"],
         job["s"] + job["steps"], _full)
     _sync(dev)
     return {"logits": logits, "counts": _rank_counts(),
@@ -3988,32 +4196,37 @@ def _sharded_heads(mesh, job: dict) -> dict:
 
 def dry_run_walks(job: dict) -> dict:
     """Phase 12(d), in a CPU process of its own (its fake groups must not
-    meet phase 12's ranks): (b')'s calls at (b')'s configuration, layers,
-    batch, prompt and steps walked on the meta device
-    (``roofline.op_walk``) over torch's fake group of MESH_RANKS at
-    HEADS_SHAPE, the mesh of the cards' device type (``launch.mesh``,
-    ``device="meta"``), each logits gathered as ``_full`` gathers it; then
-    ``launch.dryrun.run_cell`` of DRYRUN_ARCH's DRYRUN_SHAPE at the
-    single- and multi-pod meshes.  The collective counts by kind, the
-    walk's seconds and the two records' numbers."""
+    meet phase 12's ranks): (b') and (b'')'s calls at their
+    configurations, layers, batch, prompt and steps walked on the meta
+    device (``roofline.op_walk``) over torch's fake group of MESH_RANKS
+    at HEADS_SHAPE, the mesh of the cards' device type (``launch.mesh``,
+    ``device="meta"``), each logits gathered as ``_full`` gathers it;
+    then ``launch.dryrun.run_cell`` of DRYRUN_ARCH's DRYRUN_SHAPE at the
+    single- and multi-pod meshes.  The collective counts by kind and the
+    walk's seconds of each case, and the two records' numbers."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_process_mesh as process_mesh
-    api = get_model(_arch(job, "heads_arch", n_layers=job["gate_layers"]))
-    t0 = time.perf_counter()
-    with dryrun.fake_world(MESH_RANKS):
-        mesh = process_mesh(HEADS_SHAPE, ("data", "model"), device="meta")
-        params = api.init_params(torch.Generator().manual_seed(0),
-                                 torch.float32, "meta")
-        shp.place_params(params, shp.param_shardings(params, api.cfg, mesh))
-        b, s = job["b"], job["s"]
-        tokens = torch.empty((b, s), dtype=torch.int32, device="meta")
-        fed = [torch.empty((b, 1), dtype=torch.int32, device="meta")
-               for _ in range(job["steps"])]
-        acc = op_walk.analyze(_heads_calls, api, params, mesh, "meta",
-                              tokens, fed, s + job["steps"],
-                              lambda x: x.full_tensor())
-    out = {"counts": {k: n for k, n in acc.collective_counts.items() if n},
-           "walk_s": time.perf_counter() - t0, "records": {}}
+    out = {"cases": {}, "records": {}}
+    b, s = job["b"], job["s"]
+    for case in MESH_LM_CASES:
+        api = _case_api(job, case)
+        t0 = time.perf_counter()
+        with dryrun.fake_world(MESH_RANKS):
+            mesh = process_mesh(HEADS_SHAPE, ("data", "model"),
+                                device="meta")
+            params = api.init_params(torch.Generator().manual_seed(0),
+                                     torch.float32, "meta")
+            shp.place_params(params, shp.param_shardings(params, api.cfg,
+                                                         mesh))
+            tokens = torch.empty((b, s), dtype=torch.int32, device="meta")
+            fed = [torch.empty((b, 1), dtype=torch.int32, device="meta")
+                   for _ in range(job["steps"])]
+            acc = op_walk.analyze(_lm_calls, api, params, mesh, "meta",
+                                  tokens, fed, s + job["steps"],
+                                  lambda x: x.full_tensor())
+        out["cases"][case] = {
+            "counts": {k: n for k, n in acc.collective_counts.items() if n},
+            "walk_s": time.perf_counter() - t0}
     for kind in ("single", "multi"):
         with dryrun.fake_world(dryrun.WORLDS[kind]):
             rec = dryrun.run_cell(DRYRUN_ARCH, DRYRUN_SHAPE, kind)
@@ -4024,51 +4237,44 @@ def dry_run_walks(job: dict) -> dict:
     return out
 
 
-def start_dry_run(job: dict) -> tuple:
-    """Phase 12(d)'s ``dry_run_walks`` started in a subprocess on the CPU
-    (no card visible to it), to run beside phase 12's ranks: (the
-    process, its start on the host clock)."""
-    keys = ("heads_arch", "gate_layers", "b", "s", "steps", "smoke",
-            "changes")
-    proc = subprocess.Popen(
-        [sys.executable, "-c", "import json, sys, chip_smoke; print(json."
-         "dumps(chip_smoke.dry_run_walks(json.loads(sys.argv[1]))))",
-         json.dumps({k: job[k] for k in keys})],
-        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True,
-        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
-    return proc, time.perf_counter()
+def start_dry_run(job: dict) -> CpuProcess:
+    """Phase 12(d)'s ``dry_run_walks`` started in a CPU subprocess, to run
+    beside phase 12's ranks."""
+    keys = ("heads_arch", "gate_layers", "ssm_arch", "ssm_layers", "b", "s",
+            "steps", "smoke", "changes")
+    return CpuProcess("import json, sys, chip_smoke; print(json.dumps("
+                      "chip_smoke.dry_run_walks(json.loads(sys.argv[1]))))",
+                      json.dumps({k: job[k] for k in keys}))
 
 
-def dry_run_phase(job: dict, started: tuple, staged: dict,
+def dry_run_phase(job: dict, walks: CpuProcess, staged: dict,
                   on_card: bool) -> None:
-    """Phase 12(d): the walks ``start_dry_run`` started, their collectives
-    by kind against ``staged``, the collectives rank 0 staged through
-    host memory in (b') (every functional collective a gloo rank on a
-    card runs: what the card's ranks ran); a CPU rehearsal stages none
-    and compares nothing."""
-    proc, t0 = started
-    out, err = proc.communicate(timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"dry run walks: {err[-3000:]}")
-    got = json.loads(out.strip().splitlines()[-1])
-    ran = {}
-    for name, n in staged.items():
-        kind = STAGED_KINDS.get(name, name)
-        ran[kind] = ran.get(kind, 0) + n
-    walked = got["counts"]
-    if on_card and (not ran or walked != ran):
-        raise AssertionError(f"dry run: the walk of (b')'s calls counts "
-                             f"{walked}, rank 0 staged {ran}")
-    phase("dryrun", f"(b')'s calls ({job['heads_arch']} {job['gate_layers']} "
-                    f"layers fp32, prefill {job['b']} x {job['s']}, "
-                    f"{job['steps']} decode steps, each logits gathered) "
-                    f"walked on meta over a fake group of {MESH_RANKS} at "
-                    f"{HEADS_SHAPE}: collectives {walked}; rank 0 staged "
-                    f"{ran}" + (" (equal)" if on_card else
-                                " (a CPU rehearsal stages none)")
-                    + f"; walk {got['walk_s']:.1f} s, subprocess "
-                    f"{time.perf_counter() - t0:.1f} s (beside the ranks)")
+    """Phase 12(d): the walks ``start_dry_run`` started, each case's
+    collectives by kind against ``staged[case]``, the collectives rank 0
+    staged through host memory in that part (every functional collective
+    a gloo rank on a card runs: what the card's ranks ran); a CPU
+    rehearsal stages none and compares nothing."""
+    _, got = walks.result("dry run walks", 600)
+    for case, (arch, layers) in MESH_LM_CASES.items():
+        ran = {}
+        for name, n in staged[case].items():
+            kind = STAGED_KINDS.get(name, name)
+            ran[kind] = ran.get(kind, 0) + n
+        walked = got["cases"][case]["counts"]
+        if on_card and (not ran or walked != ran):
+            raise AssertionError(f"dry run: the walk of {case}'s calls "
+                                 f"counts {walked}, rank 0 staged {ran}")
+        phase("dryrun", f"{job[arch]} {job[layers]} layers fp32 (prefill "
+                        f"{job['b']} x {job['s']}, {job['steps']} decode "
+                        f"steps, each logits gathered) walked on meta over a "
+                        f"fake group of {MESH_RANKS} at {HEADS_SHAPE}: "
+                        f"collectives {walked}; rank 0 staged {ran}"
+                        + (" (equal)" if on_card else
+                           " (a CPU rehearsal stages none)")
+                        + f"; walk {got['cases'][case]['walk_s']:.1f} s")
+    phase("dryrun", f"the walks' subprocess "
+                    f"{time.perf_counter() - walks.t0:.1f} s "
+                    "(beside the ranks)")
     for kind, r in got["records"].items():
         phase("dryrun", f"{DRYRUN_ARCH} {DRYRUN_SHAPE} at the {kind} "
                         f"production mesh ({r['chips']} ranks, fake group, "
@@ -4189,8 +4395,13 @@ def rank_part(out: dict, name: str):
                        if n > staged.get(k, 0)}}
 
 
+def _part(case: str) -> str:
+    """The rank part of (b') ("heads") or (b'') ("ssm")."""
+    return str(HEADS_SHAPE) + ("" if case == "heads" else f" {case}")
+
+
 def mesh_ranks(rank: int, world: int, job: dict) -> dict:
-    """Phase 12 (b), (b'), (c) and (c') on one rank of the spawned
+    """Phase 12 (b), (b'), (b''), (c) and (c') on one rank of the spawned
     group."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4202,10 +4413,11 @@ def mesh_ranks(rank: int, world: int, job: dict) -> dict:
         for mode in ("none", "local"):
             out[mode] = _sharded_serve(mesh, job, mode)
         out["bf16"] = _sharded_bf16(mesh, job)
-    with rank_part(out, str(HEADS_SHAPE)):
-        out["heads"] = _sharded_heads(
-            make_process_mesh(HEADS_SHAPE, ("data", "model"),
-                              device=job["device"]), job)
+    heads_mesh = make_process_mesh(HEADS_SHAPE, ("data", "model"),
+                                   device=job["device"])
+    for case in MESH_LM_CASES:
+        with rank_part(out, _part(case)):
+            out[case] = _sharded_lm(heads_mesh, job, case)
     with rank_part(out, "training"):
         out["train"] = _sharded_train(mesh, job)
     with rank_part(out, "resume"):
@@ -4242,16 +4454,18 @@ def _one_rank_serve(job: dict, mode: str) -> dict:
             "picks": [p.cpu() for p in tape.picks]}
 
 
-def _one_rank_heads(job: dict) -> dict:
-    """The one-rank fp32 run of (b'): HEADS_ARCH cut to its gate depth,
-    seed 0, prefill and greedy decode steps on the kernel path."""
+def _one_rank_lm(job: dict, case: str) -> dict:
+    """The one-rank fp32 run of (b') ("heads") or (b'') ("ssm"): the
+    architecture cut to its depth, seed 0, prefill and greedy decode
+    steps on the kernel path."""
     dev = torch.device(job["device"])
-    api = get_model(_arch(job, "heads_arch", n_layers=job["gate_layers"]))
+    api = _case_api(job, case)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = api.init_params(gen, torch.float32, dev)
+    seed = 3 + list(MESH_LM_CASES).index(case)
     tokens = torch.randint(0, api.cfg.vocab_size, (job["b"], job["s"]),
                            generator=torch.Generator(device=dev)
-                           .manual_seed(3), device=dev, dtype=torch.int32)
+                           .manual_seed(seed), device=dev, dtype=torch.int32)
     with torch.no_grad():
         cache, last = make_prefill_step(api, job["s"] + job["steps"])(
             params, {"tokens": tokens})
@@ -4284,15 +4498,13 @@ def mesh_serving_phase(job: dict | None = None) -> dict:
     try:
         return _mesh_serving(job, walks)
     finally:
-        if walks[0].poll() is None:
-            walks[0].kill()
-            walks[0].communicate()
+        walks.stop()
 
 
-def _mesh_serving(job: dict, walks: tuple) -> dict:
+def _mesh_serving(job: dict, walks: CpuProcess) -> dict:
     t0 = time.perf_counter()
     one = {mode: _one_rank_serve(job, mode) for mode in ("none", "local")}
-    one_heads = _one_rank_heads(job)
+    one_lm = {case: _one_rank_lm(job, case) for case in MESH_LM_CASES}
     one_train = _one_card_train(job)
     if job["device"] == "cuda":
         torch.cuda.empty_cache()
@@ -4303,8 +4515,8 @@ def _mesh_serving(job: dict, walks: tuple) -> dict:
             "tokens": one["none"]["tokens"],
             "fed": {m: one[m]["fed"] for m in one},
             "picks": {m: one[m]["picks"] for m in one},
-            "heads_tokens": one_heads["tokens"],
-            "heads_fed": one_heads["fed"], "ckpt_dir": ckpt_dir},
+            **{f"{case}_{k}": one_lm[case][k] for case in MESH_LM_CASES
+               for k in ("tokens", "fed")}, "ckpt_dir": ckpt_dir},
             device=job["device"], timeout=900)
     spawn_s = time.perf_counter() - t0
     head = ranks[0]
@@ -4365,7 +4577,7 @@ def _mesh_serving(job: dict, walks: tuple) -> dict:
     worst = max(_lm_gate(f"sharded {HEADS_SHAPE} "
                          f"{'prefill' if i == 0 else i}", g, w, SHARD_TOL)
                 for i, (g, w) in enumerate(zip(got["logits"],
-                                               one_heads["logits"])))
+                                               one_lm["heads"]["logits"])))
     for r in ranks:
         c = r["heads"]["counts"]
         if on_card and (c["flash_attention"][0] != heads_layers or c[
@@ -4383,6 +4595,39 @@ def _mesh_serving(job: dict, walks: tuple) -> dict:
                   f"the same greedy tokens; the KV cache whole on "
                   f"\"model\" ({got['cache']['k']}); per rank flash "
                   f"{heads_layers} + decode {heads_layers * steps} launches")
+    ssm_cfg = _case_api(job, "ssm").cfg
+    got = head["ssm"]
+    worst = max(_lm_gate(f"sharded {HEADS_SHAPE} {job['ssm_arch']} "
+                         f"{'prefill' if i == 0 else i}", g, w, SHARD_TOL)
+                for i, (g, w) in enumerate(zip(got["logits"],
+                                               one_lm["ssm"]["logits"])))
+    n_super = ssm_cfg.n_layers // ssm_cfg.attn_every
+    for r in ranks:
+        c = r["ssm"]["counts"]
+        if on_card and (c["flash_attention"][0] != n_super or c[
+                "decode_attention"][0] != n_super * steps or c[
+                "ssd_scan"][0] != ssm_cfg.n_layers):
+            raise AssertionError(f"sharded {HEADS_SHAPE} {job['ssm_arch']}: "
+                                 f"launches {c}")
+        if "Shard" not in r["ssm"]["cache"]["state"]:
+            raise AssertionError(f"sharded {HEADS_SHAPE} {job['ssm_arch']}: "
+                                 f"the SSM state whole on \"model\": "
+                                 f"{r['ssm']['cache']}")
+    staged = head["parts"][_part("ssm")]["staged"]
+    phase("mesh", f"{job['ssm_arch']} at full width cut to "
+                  f"{ssm_cfg.n_layers} of its {_arch(job, 'ssm_arch').n_layers}"
+                  f" layers ({n_super} super-block: {ssm_cfg.attn_every} "
+                  f"Mamba-2 layers and the shared block) fp32 on "
+                  f"{MESH_RANKS} ranks {HEADS_SHAPE}, the decode step on "
+                  f"each rank's {ssm_cfg.ssm_nheads // HEADS_SHAPE[1]} of "
+                  f"{ssm_cfg.ssm_nheads} SSM heads, in_proj and out_proj "
+                  f"split over \"model\": prefill {job['b']} x {job['s']} "
+                  f"and {steps} decode steps within {worst:.3g} x max "
+                  f"|logits| of the one-rank run (gate {SHARD_TOL}), the same "
+                  f"greedy tokens; the state {got['cache']['state']}; per "
+                  f"rank ssd_scan {ssm_cfg.n_layers}, flash {n_super} + "
+                  f"decode {n_super * steps} launches; rank 0 staged "
+                  f"{staged}")
     tr = head["train"]
 
     def rel_loss(a: float, b: float) -> float:
@@ -4412,16 +4657,18 @@ def _mesh_serving(job: dict, walks: tuple) -> dict:
         raise AssertionError(f"sharded train: loss rel {rel} (one card vs "
                              f"float64 {rel64}), gradients {gaps} x max |g| "
                              f"(gate {grad_gate})")
-    n_ssd = _arch(job, "train_arch").n_layers * (
-        2 if _arch(job, "train_arch").remat else 1)
+    per_layer = 2 if _arch(job, "train_arch").remat else 1
+    n_ssd = _arch(job, "train_arch").n_layers * per_layer
+    n_gate = _gate_train_cfg(job).n_layers * per_layer
     for r in ranks:
         t = r["train"]
-        if on_card and (t["fp32_counts"]["ssd_scan"][0] != n_ssd or t[
+        if on_card and (t["fp32_counts"]["ssd_scan"][0] != n_gate or t[
                 "bf16_counts"]["ssd_scan"][0] != n_ssd * job["train_steps"]):
             raise AssertionError(f"sharded train: launches "
                                  f"{t['fp32_counts']} {t['bf16_counts']}")
     phase("mesh", f"{job['train_arch']} train() on {MESH_RANKS} ranks, B "
-                  f"{job['train_b']} x S {job['train_s']}: fp32 step loss "
+                  f"{job['train_b']} x S {job['train_s']}: cut to "
+                  f"{_gate_train_cfg(job).n_layers} layers, fp32 step loss "
                   f"{tr['loss']:.6f} within {rel:.3g} of the one-card "
                   f"step's (the one-card step within {rel64:.3g} of its "
                   f"float64 witness's); gradients, worst leaf of max |a - "
@@ -4433,7 +4680,8 @@ def _mesh_serving(job: dict, walks: tuple) -> dict:
                   + ", ".join(f"{x:.1f}" for x in tr["bf16_ms"])
                   + f" ms (host clock), losses "
                   + " ".join(f"{x:.4f}" for x in tr["bf16_losses"])
-                  + f"; ssd_scan {n_ssd} launches a step per rank; peak "
+                  + f" at full depth; ssd_scan {n_gate} launches in the fp32 "
+                  f"step and {n_ssd} a bf16 step per rank; peak "
                   f"memory a rank {tr['peak_gb']:.2f} GB")
     rs = head["resume"]
     k = job["resume_at"]
@@ -4469,13 +4717,20 @@ def _mesh_serving(job: dict, walks: tuple) -> dict:
                   + " GB), restore "
                   + ", ".join(f"{x:.2f}" for x in rec["restore_s"])
                   + f" s (host clock); on {CARD['smi']}")
-    # the head split gathers only where "model" does not divide the heads:
-    # never on MESH_SHAPE, where every head count divides it
+    # the head split gathers where "model" does not divide the attention
+    # heads, and only there: in (b'), never on MESH_SHAPE, where every head
+    # count divides it, nor in (b'') (32 heads and KV heads over 4)
+    def heads_divide(case: str) -> bool:
+        cfg = _case_api(job, case).cfg
+        return not (cfg.n_heads % HEADS_SHAPE[1]
+                    or cfg.n_kv_heads % HEADS_SHAPE[1])
+    gathering = {_part(case): not heads_divide(case)
+                 for case in MESH_LM_CASES}
     for r in ranks:
         gathers = {name: part["head_gathers"]
                    for name, part in r["parts"].items()}
-        if any(n for name, n in gathers.items() if name != str(HEADS_SHAPE)
-               ) or not gathers[str(HEADS_SHAPE)]:
+        if any(bool(n) != gathering.get(name, False)
+               for name, n in gathers.items()):
             raise AssertionError(f"head gathers by part: {gathers}")
     parts = head["parts"]
     phase("mesh", f"one-rank runs {one_s:.1f} s, the spawn {spawn_s:.1f} s "
@@ -4485,10 +4740,13 @@ def _mesh_serving(job: dict, walks: tuple) -> dict:
                   "by part: " + "; ".join(f"{name} {part['staged']}"
                                           for name, part in parts.items())
                   + f" ({head['staged_gb']:.2f} GB copied in all); the "
-                  f"head split gathered {parts[str(HEADS_SHAPE)]['head_gathers']} "
-                  f"times on {HEADS_SHAPE}, never on {MESH_SHAPE}; on "
-                  f"{CARD['smi']}")
-    dry_run_phase(job, walks, parts[str(HEADS_SHAPE)]["staged"], on_card)
+                  f"head split gathered "
+                  + ", ".join(f"{parts[name]['head_gathers']} times in "
+                              f"{name}" for name, on in gathering.items()
+                              if on)
+                  + f", never on {MESH_SHAPE}; on {CARD['smi']}")
+    dry_run_phase(job, walks, {case: parts[_part(case)]["staged"]
+                               for case in MESH_LM_CASES}, on_card)
 
     def total(kernel, part):
         return sum(r[part]["counts"][kernel][0] for r in ranks)
@@ -4508,6 +4766,10 @@ def _mesh_serving(job: dict, walks: tuple) -> dict:
             f"sharded {job['heads_arch']} {HEADS_SHAPE} ({MESH_RANKS} "
             f"ranks)": {k: total(k, "heads")
                         for k in ("flash_attention", "decode_attention")},
+            f"sharded {job['ssm_arch']} {HEADS_SHAPE} ({MESH_RANKS} "
+            f"ranks)": {k: total(k, "ssm")
+                        for k in ("flash_attention", "decode_attention",
+                                  "ssd_scan")},
             f"sharded train {job['train_arch']} ({MESH_RANKS} ranks)": {
                 "ssd_scan": sum(r["train"]["fp32_counts"]["ssd_scan"][0]
                                 + r["train"]["bf16_counts"]["ssd_scan"][0]
@@ -4515,13 +4777,13 @@ def _mesh_serving(job: dict, walks: tuple) -> dict:
             f"sharded resume {job['train_arch']} ({MESH_RANKS} ranks)": {
                 "ssd_scan": total("ssd_scan", "resume")}},
         "by_dtype": {
-            k: by_dtype(k, ("none", "local", "bf16", "heads"))
+            k: by_dtype(k, ("none", "local", "bf16", "heads", "ssm"))
             for k in ("flash_attention", "decode_attention")} | {
             "ssd_scan": {dt: sum(r["train"][part]["ssd_scan"][1].get(dt, 0)
                                  for r in ranks
                                  for part in ("fp32_counts", "bf16_counts"))
-                         + sum(r["resume"]["counts"]["ssd_scan"][1].get(dt, 0)
-                               for r in ranks)
+                         + sum(r[part]["counts"]["ssd_scan"][1].get(dt, 0)
+                               for r in ranks for part in ("resume", "ssm"))
                          for dt in ("float32", "bfloat16")}}}
 
 
@@ -4542,8 +4804,26 @@ def _ms(x) -> str:
 
 
 def main() -> int:
+    started = time.perf_counter()
     name = device_phase()
     build_phase()
+    walks = start_roofline_walks()
+    try:
+        _main(name, walks, started)
+    finally:
+        walks.stop()
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def _main(name: str, walks: CpuProcess, started: float) -> None:
+    stages = [("start", started)]
+
+    def stage(label: str) -> None:
+        stages.append((label, time.perf_counter()))
+
     worst = kernel_phase()
     attn_worst = attention_phase()
     ssd_worst = ssd_phase()
@@ -4552,6 +4832,7 @@ def main() -> int:
     stream_phase()
     forward_phase()
     paper_forward_phase()
+    stage("phases 3-4b")
 
     # Main path 1: the MT-WND serving pool and RIBBON's search over it.
     engine = ClusterEngine("mtwnd", DEFAULT_CELLS, seed=0, device="cuda")
@@ -4576,6 +4857,7 @@ def main() -> int:
     # driver over all five, and recovery on the live engine.
     paper_serve_phase(wl)
     serve_driver_phase()
+    stage("phases 5-6b")
 
     # Main path 2: RIBBON's own search over the pool simulator.
     reset_counts()
@@ -4626,6 +4908,7 @@ def main() -> int:
                       "flavour; no other kernel")
 
     catalog_phase()
+    stage("phases 7-7d")
 
     # Main paths 3-5: the LMs' serving paths at full width and depth.
     by_path, by_dtype, lm_ms = {}, {}, {}
@@ -4635,6 +4918,7 @@ def main() -> int:
             total = by_dtype.setdefault(kernel, dict.fromkeys(counts, 0))
             for dtype, n in counts.items():
                 total[dtype] += n
+    stage("phase 8")
 
     # Main path 5b: training at full width and depth, then under the
     # one-card mesh (counts held inside).
@@ -4648,7 +4932,9 @@ def main() -> int:
                 by_dtype[kernel][dtype] += n
 
     # Phase 11: the roofline of every timed path, walked on meta.
-    roofline_phase(lm_ms, train_runs)
+    stage("phases 8b, 10")
+    roofline_phase(lm_ms, train_runs, walks)
+    stage("phase 11")
 
     # Main path 6: the scenario engine over the simulator plane.
     reset_counts()
@@ -4668,6 +4954,7 @@ def main() -> int:
 
     # Main path 6b: an episode through the live plane (counts read inside).
     live_plane_phase()
+    stage("phases 9, 9b")
 
     # Phase 12: the multi-device half on one card: the simulator's sharded
     # grid lanes (counts read inside), then serving and training on four
@@ -4678,6 +4965,7 @@ def main() -> int:
     for kernel, dtypes in mesh12["by_dtype"].items():
         for dtype, n in dtypes.items():
             by_dtype[kernel][dtype] = by_dtype[kernel].get(dtype, 0) + n
+    stage("phase 12")
 
     def launches(kernel: str) -> tuple[int, dict]:
         counts = {arch: c[kernel] for arch, c in by_path.items()
@@ -4709,11 +4997,12 @@ def main() -> int:
                         f"{_ms(line['eager_plain_ms'])}, library "
                         f"{_ms(line['eager_library_ms'])}; design: "
                         f"{line['design']}")
+    stage("kernels line")
+    phase("time", f"the whole run {stages[-1][1] - started:.1f} s (host "
+                  "clock) by stage: " + ", ".join(
+                      f"{label} {t - t_prev:.1f} s" for (_, t_prev), (label, t)
+                      in zip(stages, stages[1:])) + f"; {CARD['smi']}")
     print(json.dumps({"kernels": lines}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

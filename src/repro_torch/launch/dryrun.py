@@ -151,14 +151,14 @@ def _spec_axes(shardings: dict, pick) -> list:
             if a in named]
 
 
-def cell_split(cfg, mesh, batch: int, kind: str, shardings: dict) -> dict:
+def cell_split(cfg, mesh, batch: int, shardings: dict) -> dict:
     """The mesh axes that split the cell's work: the batch, the projections
     and MLP (their weights' specs), the experts (their weights' specs; the
     capacity buffer by ``moe_buffer_shard``) and the MoE routing (every
     token on every rank, but in the local layer), the attention cores and SSD
-    scans (``sharding.split_elems``, as the models call it) and, in an SSM
-    decode step, which runs on each rank's batch shard with the layer's
-    weights gathered, the batch's axes."""
+    scans (``sharding.split_elems``, as the models call it).  An SSM
+    decode step's products run on its weights as their specs split them,
+    as the projections'."""
     def leaf(name):
         return name.rsplit(".", 1)[-1]
     bat, _ = shp.split_elems(mesh, batch)
@@ -179,8 +179,6 @@ def cell_split(cfg, mesh, batch: int, kind: str, shardings: dict) -> dict:
         out["ssd_scan"] = _axes_pair(shp.split_elems(
             mesh, batch, cfg.ssm_nheads,
             *(() if cfg.ssm_ngroups == 1 else (cfg.ssm_ngroups,))))
-        if kind == "decode":
-            out["ssm_decode_step"] = _axes(bat)
     return out
 
 
@@ -249,7 +247,7 @@ def build_walk(arch: str, shape: str, multi_pod: bool,
         inputs = {"tokens": inputs["tokens"]}
         args = (params, cache, inputs["tokens"])
     parts["inputs"] = rank_bytes(inputs)
-    split = cell_split(cfg, mesh, gbatch, kind, p_sh)
+    split = cell_split(cfg, mesh, gbatch, p_sh)
     return step, args, mesh, cfg, (seq, gbatch, kind), parts, split
 
 

@@ -38,10 +38,17 @@ from ..launch import sharding as shp
 from ..launch.sharding import constrain
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
-    """Normalise in float32, cast back to x's type, then scale by w."""
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
+            group=None):
+    """Normalise in float32, cast back to x's type, then scale by w.  With
+    ``group`` x and w are one rank's equal shards of the last dimension:
+    the mean square is taken over the whole (a sum over ``group``)."""
     x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    if group is None:
+        var = (x32 * x32).mean(dim=-1, keepdim=True)
+    else:
+        var = _sum((x32 * x32).sum(dim=-1, keepdim=True), group) \
+            / (x.shape[-1] * group.size())
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 

@@ -15,7 +15,9 @@ reference model's own chunked math (``ssd_chunked``); ``use_kernel=False``
 runs that math instead, so a run can hold the kernel path against it on
 the card.  ``ssm_decode_step`` is plain PyTorch (the reference has no
 kernel for it) and writes the cache layer's state and conv carry in
-place.
+place; given the "model" group it runs one rank's part of the step on
+the reference's sharded layout (weights and state as the specs split
+them over "model", explicit collectives of activations only).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from ..kernels import autograd as kernel_autograd
 from ..kernels.ref import per_head, ssd_scan_ref
 from ..launch import sharding as shp
 from ..launch.sharding import constrain
-from .layers import dense, rmsnorm
+from .layers import _collective, _sum, dense, rmsnorm
 
 
 def init_ssm_params(generator: torch.Generator, cfg, dtype=torch.float32,
@@ -191,27 +193,66 @@ def ssm_forward(params, x: torch.Tensor, cfg, *, use_kernel: bool = True):
         {"state": state, "conv": new_conv}
 
 
-def ssm_decode_step(params, x: torch.Tensor, cfg, carry: dict):
+def _gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' column shards of x (..., C / size) side by side (an
+    all-gather over ``group``)."""
+    out = _collective("all_gather_into_tensor", x.movedim(-1, 0),
+                      group.size(), group=group)
+    return out.movedim(0, -1)
+
+
+def ssm_decode_step(params, x: torch.Tensor, cfg, carry: dict, group=None):
     """Single-token recurrent step.  x (B, 1, D); carry {"state"
     (B, H, P, N) float32, "conv" (B, K-1, conv_dim)}, a cache layer, both
     overwritten in place (the conv carry is read in x's type, as the
-    reference casts it).  Returns (out (B, 1, D), carry)."""
+    reference casts it).  Returns (out (B, 1, D), carry).
+
+    With ``group``, the mesh's "model" axis, the arguments are one rank's
+    local shards, placed as the reference's specs place them, and what is
+    split is read from their shapes; the step moves activations only.  An
+    ``in_proj`` narrower than its 2·d_inner + 2·G·N + H columns is
+    column-parallel: its product's shards are gathered (the segments z,
+    xBC and dt cross them, and the conv carry and B, C are needed whole).
+    A state with fewer than H heads holds the rank's heads: x, dt, A_log,
+    D, dt_bias and the gated norm's columns follow them, the norm's sum of
+    squares summed over ``group``.  An ``out_proj`` with fewer than
+    d_inner rows is row-parallel: a rank that stepped every head takes its
+    rows of y, and the partial products are summed over ``group``."""
     state, conv = carry["state"], carry["conv"]
-    z, xbc, dt = _split_proj(cfg, dense(x, params["in_proj"]))
+    nh, hd = cfg.ssm_nheads, cfg.ssm_headdim
+    zxbcdt = dense(x, params["in_proj"])
+    if zxbcdt.shape[-1] < 2 * cfg.d_inner + 2 * cfg.ssm_ngroups * \
+            cfg.ssm_state + nh:
+        zxbcdt = _gather_last(zxbcdt, group)
+    z, xbc, dt = _split_proj(cfg, zxbcdt)
     xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"],
                                  conv.to(x.dtype))
     conv.copy_(new_conv)
     x_in, b, c = _heads(cfg, F.silu(xbc)[:, 0])
-    bh = per_head(b, cfg.ssm_nheads, 1).float()           # (B, H, N)
-    ch = per_head(c, cfg.ssm_nheads, 1).float()
-    dt = F.softplus(dt[:, 0].float() + params["dt_bias"])  # (B, H)
+    heads = cols = slice(None)
+    norm_group = None
+    if state.shape[1] < nh:                                # this rank's heads
+        first = group.rank() * state.shape[1]
+        heads = slice(first, first + state.shape[1])
+        cols, norm_group = slice(first * hd, heads.stop * hd), group
+    x_in = x_in[:, heads]
+    bh = per_head(b, nh, 1)[:, heads].float()             # (B, H, N)
+    ch = per_head(c, nh, 1)[:, heads].float()
+    dt = F.softplus(dt[:, 0, heads].float() + params["dt_bias"][heads])
     # exp(A_log) in A_log's type: bf16 when serving bf16, as the reference
-    decay = torch.exp(dt * -torch.exp(params["A_log"]))
+    decay = torch.exp(dt * -torch.exp(params["A_log"][heads]))
     x32 = x_in.float()
     state.mul_(decay[..., None, None]).add_(
         x32[..., None] * bh[:, :, None, :] * dt[..., None, None])
     y = torch.einsum("bhpn,bhn->bhp", state, ch)
-    y = shp.merge_heads((y + params["D"][:, None] * x32)[:, None]) \
+    y = shp.merge_heads((y + params["D"][heads][:, None] * x32)[:, None]) \
         .to(x.dtype)
-    y = rmsnorm(y * F.silu(z), params["ssm_norm"], cfg.norm_eps)
-    return dense(y, params["out_proj"]), carry
+    y = rmsnorm(y * F.silu(z[..., cols]), params["ssm_norm"][cols],
+                cfg.norm_eps, norm_group)
+    rows = params["out_proj"].shape[0]
+    if y.shape[-1] > rows:                 # every head stepped, rows split
+        y = y.narrow(-1, group.rank() * rows, rows)
+    out = dense(y, params["out_proj"])
+    if rows < cfg.d_inner:
+        out = _sum(out, group)
+    return out, carry

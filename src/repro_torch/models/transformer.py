@@ -485,8 +485,12 @@ def _mamba_decode(cfg, layer: Layer, h: torch.Tensor, cache: dict,
                   index: tuple) -> torch.Tensor:
     """One Mamba-2 block for one token, advancing cache entry ``index`` in
     place.  Under a mesh over a process group each rank steps its batch
-    shard with the layer's weights gathered (the step is plain PyTorch,
-    a few small products), and keeps its shard of the new carry."""
+    shard on the layout the reference's specs give, which the step reads
+    from its shards' shapes: ``in_proj`` column-parallel and ``out_proj``
+    row-parallel over "model", the state split by heads where "model"
+    divides them (else whole, every rank stepping every head), the conv
+    carry whole; only activations move, and each rank keeps its shard of
+    the new carry."""
     if not shp.is_distributed(cache["state"]):
         out, _ = ssm_decode_step(layer.ssm,
                                  rmsnorm(h, layer.norm, cfg.norm_eps), cfg,
@@ -494,21 +498,33 @@ def _mamba_decode(cfg, layer: Layer, h: torch.Tensor, cache: dict,
                                   "conv": cache["conv"][index]})
         return h + out
     names = list(layer.ssm.keys())
+    mesh = shp.active_mesh()
+    bat, _ = shp.split_elems(mesh, h.shape[0])
+
+    def over_model(n: int):
+        return shp.split_elems(mesh, 1, n)[1]
+    cols = over_model(layer.ssm["in_proj"].shape[-1])
+    heads = over_model(cfg.ssm_nheads)
+    rows = over_model(cfg.d_inner)
+    group = (mesh.device_mesh.get_group(shp.MODEL_AXIS) if cols or rows
+             else None)
+    specs = {"in_proj": (None, cols), "out_proj": (rows, None)}
 
     def step(h, state, conv, norm, *weights):
         carry = {"state": state.clone(), "conv": conv.clone()}
         out, _ = ssm_decode_step(dict(zip(names, weights)),
-                                 rmsnorm(h, norm, cfg.norm_eps), cfg, carry)
+                                 rmsnorm(h, norm, cfg.norm_eps), cfg, carry,
+                                 group)
         return h + out, carry["state"], carry["conv"]
 
-    bat, _ = shp.split_elems(shp.active_mesh(), h.shape[0])
     weights = [layer.ssm[n] for n in names]
     carried = (cache["state"][index], cache["conv"][index])
+    state_spec = (bat, heads, None, None)
     h, *new = shp.local_call(
         step, (h, *carried, layer.norm, *weights),
-        ((bat, None, None), (bat, None, None, None), (bat, None, None),
-         (None,), *((None,) * w.dim() for w in weights)),
-        ((bat, None, None), (bat, None, None, None), (bat, None, None)))
+        ((bat, None, None), state_spec, (bat, None, None), (None,),
+         *(specs.get(n, (None,) * w.dim()) for n, w in zip(names, weights))),
+        ((bat, None, None), state_spec, (bat, None, None)))
     for name, x in zip(("state", "conv"), new):
         shp.write_cache(cache, name, index, x)
     return h

@@ -78,6 +78,13 @@ LM_CASES = {"qwen2.5-3b": ("qwen2.5-3b", {}),
                                     {"n_heads": 6, "n_kv_heads": 6})}
 SSM = {"d_model": 48}                        # d_inner 96: 6 SSM heads of 16
 SSM_WIDE = {"d_model": 208, "ssm_headdim": 32}  # d_inner 416: 13 heads of 32
+# the SSM and hybrid LMs, whose decode step runs on the reference's split
+# (``ssm.ssm_decode_step`` given the "model" group): label → (arch,
+# fields replaced, whether "model" divides the SSM heads).  Reduced, 8
+# heads of 16 over 4; with SSM, 6.
+SSM_CASES = {"mamba2-130m": ("mamba2-130m", {}, True),
+             "zamba2-2.7b": ("zamba2-2.7b", {}, True),
+             "mamba2-130m 6 heads": ("mamba2-130m", SSM, False)}
 
 
 @pytest.fixture(scope="module")
@@ -85,7 +92,8 @@ def spawned(tmp_path_factory):
     """The reference's answers, then one spawn of the four ranks: (the
     answers, every rank's results, the payload)."""
     want, lm = {}, {}
-    for seed, (label, (arch, replace)) in enumerate(LM_CASES.items()):
+    cases = {**LM_CASES, **{k: v[:2] for k, v in SSM_CASES.items()}}
+    for seed, (label, (arch, replace)) in enumerate(cases.items()):
         case, logits, greedy = _ref_lm(arch, seed, replace)
         lm[label] = case
         want[label] = (logits, greedy)
@@ -105,8 +113,9 @@ def _got(spawned, name: str) -> dict:
     return got
 
 
-@pytest.mark.parametrize("label", list(LM_CASES))
-def test_prefill_and_decode_match_reference(spawned, label):
+def _matches_reference(spawned, label: str) -> dict:
+    """The ranks' prefill and decode logits of ``label`` within 1e-5 x max
+    |logits| of the reference's, the same greedy tokens; their results."""
     got = _got(spawned, f"lm {label}")
     logits, greedy = spawned[0][label]
     assert len(got["logits"]) == len(logits) == STEPS + 1
@@ -115,12 +124,43 @@ def test_prefill_and_decode_match_reference(spawned, label):
         assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max(), i
     for i, (g, w) in enumerate(zip(got["greedy"], greedy)):
         np.testing.assert_array_equal(g, w, err_msg=f"step {i}")
+    return got
+
+
+@pytest.mark.parametrize("label", list(LM_CASES))
+def test_prefill_and_decode_match_reference(spawned, label):
+    got = _matches_reference(spawned, label)
     # "model" does not divide the KV heads: the cache keeps them whole
     for name in ("k", "v", "ckv", "krope"):
         if name in got["cache_placements"]:
             assert got["cache_placements"][name] == \
                 "[Replicate(), Replicate()]", name
     assert got["embed_placements"] == "[Replicate(), Shard(dim=0)]"
+
+
+@pytest.mark.parametrize("label", list(SSM_CASES))
+def test_ssm_prefill_and_decode_match_reference(spawned, label):
+    """The SSM and hybrid LMs on (1, 4): the decode step on each rank's
+    heads and shards of ``in_proj`` and ``out_proj`` (ROADMAP F-6a)."""
+    got = _matches_reference(spawned, label)
+    # the state splits its heads over "model" where it divides them
+    state = got["cache_placements"]["state"]
+    assert ("Shard" in state) == SSM_CASES[label][2], state
+
+
+@pytest.mark.parametrize("label", list(SSM_CASES))
+def test_ssm_decode_step_gathers_no_weight_and_no_state(spawned, label):
+    """Every all-gather of a decode step takes an activation: no operand
+    has the local shape of a parameter or of a layer's SSM state (before
+    the repair each Mamba-2 layer gathered its weights, and its state
+    heads where they were split); with 8 heads some are gathered (the
+    ``in_proj`` product's column shards), with 6 none."""
+    got = _got(spawned, f"lm {label}")
+    held = {tuple(s) for s in got["held"]}
+    gathered = [tuple(s) for s in got["step_gathers"]]
+    assert not held & set(gathered), (held & set(gathered))
+    if SSM_CASES[label][0] == "mamba2-130m":
+        assert bool(gathered) == SSM_CASES[label][2], gathered
 
 
 def test_the_head_split_gathers_where_model_does_not_divide(spawned):
@@ -167,7 +207,7 @@ def test_dry_run_walk_counts_the_prefill_collectives(spawned):
 def test_every_rank_holds_the_same_logits(spawned):
     first = spawned[1][0]
     for other in spawned[1][1:]:
-        for label in LM_CASES:
+        for label in [*LM_CASES, *SSM_CASES]:
             for a, b in zip(first[f"lm {label}"]["logits"],
                             other[f"lm {label}"]["logits"]):
                 np.testing.assert_array_equal(a, b, err_msg=label)

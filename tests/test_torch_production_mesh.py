@@ -183,10 +183,8 @@ def test_per_device_flops_split_the_one_card_walk(walked, cell):
     F(w), the flops of the products on parameter w, K_k, kernel k's flops
     (``kernels``; split[k] is ``split["attention"]`` for the attention
     kernels, ``split["ssd_scan"]`` for the SSD scan) and F_0, the products
-    on no parameter; and n_w is n(split["ssm_decode_step"]) for an SSM
-    layer's weights in a decode step (the step runs on each rank's batch
-    shard with the layer's weights gathered), n(split["experts"]) for the
-    experts' weights (the capacity buffer whole on "data"),
+    on no parameter; and n_w is n(split["experts"]) for the experts'
+    weights (the capacity buffer whole on "data"),
     n(split["moe_dispatch"]) for the MoE router (every rank routes every
     token), and otherwise b, times 16 where w's spec names "model"."""
     rec = _check(walked, cell)
@@ -195,9 +193,7 @@ def test_per_device_flops_split_the_one_card_walk(walked, cell):
     b = _n(split["batch"])
     want = 0.0
     for w, flops in one["by_weight"].items():
-        if "ssm_decode_step" in split and ".ssm." in w:
-            n = _n(split["ssm_decode_step"])
-        elif ".experts." in w:
+        if ".experts." in w:
             n = _n(split["experts"])
         elif w.endswith(".router"):
             n = _n(split["moe_dispatch"])
@@ -283,3 +279,20 @@ def test_dense_runs_one_product_on_rows_from_local(walked):
     assert got["flops"] == 2 * 4 * 128 * 96
     assert got["hbm_bytes"] == 4 * (4 * 128 + 128 * 96 + 4 * 96)
     assert not any(got["collective_counts"].values())
+
+
+def test_zamba2_decode_step_gathers_no_weight_and_no_state(walked):
+    """ROADMAP F-6a: zamba2-2.7b's ``decode_32k`` step at (16, 16), whose
+    "model" axis divides its 80 SSM heads, runs each Mamba-2 layer on its
+    shards of the weights and of the state.  No all-gather's operand has
+    the local shape of a parameter or of a layer's state (before the
+    repair every layer gathered its ``in_proj`` and ``out_proj`` a token,
+    4.873e9 wire bytes a rank); its wire bytes a rank lie 100 times below
+    that, and the collective term no longer dominates."""
+    got = walked["ssm_gathers"]
+    held = {tuple(s) for s in got["held"]}
+    gathered = {tuple(s) for s in got["gathered"]}
+    assert gathered and not held & gathered, held & gathered
+    rec = _check(walked, " ".join(walk.SSM_GATHERS))
+    assert rec["collective_bytes_per_device"] < 4.873e9 / 100
+    assert rec["roofline"]["dominant"] != "collective"

@@ -12,11 +12,12 @@ from __future__ import annotations
 
 import dataclasses
 import traceback
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import get_arch
 from repro_torch.launch import sharding as shp
@@ -81,6 +82,34 @@ def counted_head_gathers():
         yield gathers
     finally:
         shp._whole_where_uneven = real
+
+
+class GatherOperands(TorchDispatchMode):
+    """Within: the shape of every all-gather's operand (``shapes``), a
+    local shard of whatever is gathered; ops on DTensors are handed on to
+    DTensor, whose collectives come back here (as ``op_walk`` counts
+    them).  Nothing else changes: it nests around an op walk."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if op_walk._handed_on(types):
+            return NotImplemented
+        if func._schema.name == "_c10d_functional::all_gather_into_tensor":
+            self.shapes.append(tuple(args[0].shape))
+        return func(*args, **(kwargs or {}))
+
+
+def held_shapes(params, cache: dict) -> list:
+    """The local shapes of every parameter and of one layer of the SSM
+    state (none without one): what a decode step must not gather."""
+    shapes = {tuple(shp.local_tensor(p).shape) for p in params.parameters()}
+    if "state" in cache:
+        state = shp.local_tensor(cache["state"])
+        shapes.add(tuple(state.shape[-4:]))
+    return sorted(shapes)
 
 
 def _full(x) -> np.ndarray:
@@ -185,9 +214,12 @@ def _lm_steps(mesh, case: dict) -> dict:
         logits = [_full(last)]
         placements = {n: str(list(t.placements)) for n, t in cache.items()
                       if isinstance(t, torch.Tensor)}
-        for fed in case["fed"]:
-            step_logits, cache = api.decode_step(params, cache,
-                                                 _data(fed, mesh))
+        # the first decode step's all-gathers, beside what it holds
+        held, operands = held_shapes(params, cache), GatherOperands()
+        for i, fed in enumerate(case["fed"]):
+            with operands if i == 0 else nullcontext():
+                step_logits, cache = api.decode_step(params, cache,
+                                                     _data(fed, mesh))
             logits.append(_full(step_logits))
         cache, last = prefill(params, batch)
         tok = shp.constrain(last, "batch", None, None)[:, -1].argmax(-1)
@@ -197,6 +229,7 @@ def _lm_steps(mesh, case: dict) -> dict:
             tok, cache = serve(params, cache, tok)
             greedy.append(_full(tok))
     return {"logits": logits, "greedy": greedy, "head_gathers": len(gathers),
+            "step_gathers": operands.shapes, "held": held,
             "cache_placements": placements,
             "embed_placements": str(list(params.embed.placements))}
 

@@ -24,7 +24,10 @@ microbatch, bf16 parameters.  Beside them:
   axes under the production layout;
 * ``state``: one rank's parameter and AdamW bytes of every architecture
   at (16, 16) and, over a world of 512, at (2, 16, 16);
-* ``multi``: the cells of ``MULTI`` at (2, 16, 16).
+* ``multi``: the cells of ``MULTI`` at (2, 16, 16);
+* ``ssm_gathers``: in the walk of ``SSM_GATHERS``'s decode step, the
+  shape of every all-gather's operand, beside the local shapes of the
+  cell's parameters and of a layer of its SSM state (ROADMAP F-6a).
 
 It imports only torch and the port.
 
@@ -48,6 +51,7 @@ import json
 import sys
 import time
 from collections import Counter
+from contextlib import nullcontext
 
 import torch
 from torch.utils._pytree import tree_leaves
@@ -63,6 +67,7 @@ from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models.layers import dense
 from repro_torch.models.transformer import get_model
 from repro_torch.roofline.op_walk import analyze
+from torch_dist_ranks import GatherOperands, held_shapes
 
 WORLD, MESH = 256, (16, 16)
 TRAIN_BATCH, TRAIN_SEQ = 16, 128
@@ -76,6 +81,8 @@ GATED = [(a, s) for a in ("qwen2.5-3b", "stablelm-3b", "mamba2-130m",
                                                       "long_500k")]
 # gate (c): the multi-pod mesh halves these cells' per-device flops
 MULTI = [("stablelm-3b", "decode_32k"), ("qwen2.5-3b", "prefill_32k")]
+# the cell whose decode step must gather no parameter and no SSM state
+SSM_GATHERS = ("zamba2-2.7b", "decode_32k")
 KEEP = ("flops_per_device", "bytes_per_device", "collective_bytes_per_device",
         "collective_counts", "kernels", "memory_analysis", "split",
         "cache_placements", "roofline", "walk_s", "chips")
@@ -223,7 +230,13 @@ def main() -> None:
                  for shape in ("prefill_32k", "decode_32k")]
         cells += [(arch, "train_4k") for arch in FAMILIES.values()]
         cells += [c for c in GATED if c not in cells]
-        out["cells"] = {f"{a} {s}": _cell(a, s, "single") for a, s in cells}
+        gathers, out["cells"] = GatherOperands(), {}
+        for a, s in cells:
+            with gathers if (a, s) == SSM_GATHERS else nullcontext():
+                out["cells"][f"{a} {s}"] = _cell(a, s, "single")
+        params, cache, _ = dryrun.build_walk(*SSM_GATHERS, False)[1]
+        out["ssm_gathers"] = {"gathered": gathers.shapes,
+                              "held": held_shapes(params, cache)}
         mesh = make_production_mesh()
         out["one_card"] = {f"{a} {s}": one_card_products(a, s, mesh)
                            for a, s in GATED}

@@ -15,10 +15,12 @@ mamba2-130m, Mamba-2 SSM; zamba2-2.7b, Mamba-2 with a shared attention
 block, also with a prompt longer than its window; minicpm3-4b, MLA;
 olmoe-1b-7b, MoE; internvl2-1b, a VLM's patch prefix; whisper-tiny,
 encoder-decoder; qwen2-7b, G 7; stablelm-3b, MHA at D 80; mixtral-8x22b,
-top-2 MoE cut to 2 layers, with a prompt longer than its window), and
-the training path of
-mamba2-130m and internvl2-1b at full width and depth, in phases that each
-print a line and raise on failure:
+top-2 MoE cut to 2 layers, with a prompt longer than its window), the
+training path of mamba2-130m and internvl2-1b at full width and depth,
+and the training of zamba2-2.7b (both kernels in one model), whisper-tiny
+(non-causal and cross flash over its frames), olmoe-1b-7b and
+minicpm3-4b (MoE and MLA, cut in depth) at full width, in phases that
+each print a line and raise on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles every CUDA kernel from ``src/repro_torch/csrc`` (nvcc,
@@ -169,6 +171,21 @@ print a line and raise on failure:
    the mean loss of steps 16-20 below steps 1-5's; (c) 20 timed bf16
    steps (eager, CUDA events), a microbatch's forward and backward, peak
    memory, launches a step;
+8c. training of the other families through ``make_train_step`` at full
+   width, bf16 with the float32 master, 2 microbatches, random weights from
+   seed 0 (``TRAIN_ROWS``): zamba2-2.7b at full depth (54 Mamba-2 layers
+   through ``ssd_scan``, the shared block's 9 flash calls), B 4 x S 2048;
+   whisper-tiny, B 4 x its 448 decoder positions over 1500 stub frames
+   (N(0, 0.5^2) from seed 0; non-causal flash in the encoder, causal self
+   and S 448 x T 1500 cross flash in the decoder); olmoe-1b-7b cut to 4 of
+   16 layers (64 experts, top 8) and minicpm3-4b to 16 of 62 (MLA, flash on
+   q/k/v zero-padded to D 96), B 4 x S 2048: (a) phase 8b's fp32 gate
+   (zamba2-2.7b's at 12 layers, widened by twice its fp64-scan noise;
+   olmoe-1b-7b's and minicpm3-4b's at 2; olmoe-1b-7b's plain step replays
+   the kernel step's expert picks, forward and recompute, every one used
+   once, the flips printed); (b), (c) 10 timed bf16 steps whose mean loss
+   over steps 6-10 lies below steps 1-5's, a microbatch's forward and
+   backward, peak memory, launches a step;
 10. the mesh layer (``launch.mesh``, ``launch.sharding``):
    ``make_local_mesh()`` is the 1 x 1 ("data", "model") mesh on cuda:0,
    ``make_production_mesh()`` raises on one card (its message printed);
@@ -272,7 +289,11 @@ dispatches on the host), before each part of phase 8b and read after it
 (per microbatch one launch of the model's kernel a layer in the forward
 and one in remat's recompute, the fp32 step's in float32, the rest in
 bfloat16; none on the plain paths), before each run of phase 10 and read
-after it (as phase 8b's bf16 runs), just before phase 12(a) and read
+after it (as phase 8b's bf16 runs), before each part of each phase 8c
+row and read after it (``train_launches``: per microbatch a forward's
+flash and ``ssd_scan`` launches, twice with remat's recompute; zamba2-2.7b
+54 ``ssd_scan`` and 9 flash, whisper-tiny 12 flash, the cut olmoe-1b-7b
+and minicpm3-4b one flash a layer), just before phase 12(a) and read
 after it (one fcfs_scan launch per unsharded dispatch and one a shard of
 each sharded one, no other kernel), in each rank of phase 12(b), (b'),
 (c) and (c') before each run and read after it (a rank's flash launch a
@@ -462,7 +483,13 @@ FLASH_CASES = [("prefill", 4, 2000, 16, 2, 128, True, 0, 2000),
                ("S 4608 zamba2 window 4096", 1, 4608, 32, 32, 80, True, 4096,
                 4608),
                ("S 4608 mixtral G 6 window 4096", 1, 4608, 48, 8, 128, True,
-                4096, 4608)]
+                4096, 4608),
+               # phase 8c's microbatches (B 2) at shapes no case above has
+               ("train whisper self S 448", 2, 448, 6, 6, 64, True, 0, 448),
+               ("train cross S 448 T 1500", 2, 448, 6, 6, 64, False, 0,
+                1500),
+               ("train olmoe MHA D 128", 2, 2048, 16, 16, 128, True, 0,
+                2048)]
 # (label, B, T, KH, G, D, empty slots: "tail", "head" or "all", how many;
 # or "wrap": a ring whose first n slots hold its newest positions)
 DECODE_CASES = [("decode", 4, 2048, 2, 8, 128, "tail", 48),
@@ -586,10 +613,11 @@ LM_RUNS = [
 ]
 
 # Training (slice 12): each model at full width and depth, B 4 x S 2048
-# tokens of the synthetic stream of seed 0, random weights from seed 0,
-# and the kernel its forward runs.  internvl2-1b trains its Qwen2-0.5B
-# backbone on tokens alone (no patches), as the reference's train does.
-TRAIN_RUNS = (("mamba2-130m", "ssd_scan"), ("internvl2-1b", "flash_attention"))
+# tokens of the synthetic stream of seed 0, random weights from seed 0
+# (mamba2-130m runs ssd_scan, internvl2-1b flash: train_launches).
+# internvl2-1b trains its Qwen2-0.5B backbone on tokens alone (no
+# patches), as the reference's train does.
+TRAIN_RUNS = ("mamba2-130m", "internvl2-1b")
 TRAIN_B, TRAIN_S = 4, 2048
 # (b): bf16 parameters with the float32 master, 2 microbatches, 20 steps
 # through train(), an async checkpoint at step 10, then a resumed run of
@@ -600,6 +628,55 @@ TRAIN_STEPS, TRAIN_CUT, TRAIN_MICRO = 20, 10, 2
 # gradient (read as AdamW's first moment after the step, (1 - b1)·g)
 # within TRAIN_GRAD_TOL x that leaf's max |g|.
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+# Leaves whose gradient is zero in exact arithmetic: the encoder-decoder's
+# cross-attention key bias (a bias on every key, with no rope there,
+# shifts each query's scores by one constant, which the softmax removes).
+# Both paths give rounding noise there, so such a leaf's scale is floored
+# at ZERO_GRAD_FLOOR x the model's largest max |g|, as
+# tests/test_torch_train.py floors every leaf's.
+ZERO_GRAD_LEAVES, ZERO_GRAD_FLOOR = ("xattn.bk",), 1e-3
+
+
+class TrainRow(NamedTuple):
+    """A training row of phase 8c: ``arch`` at full width through
+    ``make_train_step``, cut by ``changes`` ((field, value) pairs, printed
+    as LMRun's), B TRAIN_B x ``seq`` tokens (and an encoder-decoder's
+    frames); its fp32 gate at ``gate_layers`` deep (0: the run's depth),
+    in ``gate_micro`` microbatches."""
+    arch: str
+    changes: tuple = ()
+    gate_layers: int = 0
+    seq: int = TRAIN_S
+    gate_micro: int = 1
+
+    @property
+    def label(self) -> str:
+        return self.arch + "".join(f"-{k}" for k, _ in self.changes)
+
+
+# Phase 8c (slice 19): the hybrid, encoder-decoder, MoE and MLA families,
+# bf16 with the float32 master in TRAIN_MICRO microbatches, random weights
+# from seed 0, tokens of the synthetic stream of seed 0.  bf16 training
+# holds some 20 B a parameter (bf16 parameter 2; float32 master, m and v
+# 12; float32 accumulator 4; bf16 gradient 2): zamba2-2.7b's 2.423e9
+# parameters 48.5 GB, so it trains at full depth, while olmoe-1b-7b's
+# 6.917e9 (138 GB) and minicpm3-4b's 4.262e9 (85 GB) are cut to 4 of 16
+# and 16 of 62 layers (1.88e9 and 1.38e9).  The fp32 gate keeps three
+# float32 copies of the model (kernel, plain and zamba2's fp64-scan path):
+# zamba2-2.7b's at 12 layers (2 shared-block calls) in 4 microbatches (its
+# remat block is a super-block: the plain paths' recompute of 6 chunked
+# scans and the shared block's scores at B 4 ran the card out of memory),
+# the MoE and MLA rows' at 2.  whisper-tiny: B 4 x its 448 decoder
+# positions over its 1500 stub frames, N(0, FRAME_STD^2) from seed 0 (as
+# tests/test_torch_train.py draws them), at full depth.
+TRAIN_ROWS = (TrainRow("zamba2-2.7b", gate_layers=12, gate_micro=4),
+              TrainRow("whisper-tiny", seq=448),
+              TrainRow("olmoe-1b-7b", (("n_layers", 4),), gate_layers=2),
+              TrainRow("minicpm3-4b", (("n_layers", 16),), gate_layers=2))
+# Each row's bf16 run: these steps, timed as phase 8b's (c); the mean loss
+# of the last 5 below that of the first 5.
+TRAIN_ROW_STEPS = 10
+FRAME_STD = 0.5
 # Phase 10: train() steps under the one-card mesh and without one.
 MESH_STEPS = 3
 # Phase 11: each kernel's figure at its path's shape as PERF.md §6 prints
@@ -2352,14 +2429,16 @@ class RoutingTape:
     def __init__(self):
         self.picks = deque()
         self.mode = None
-        self.flips = self.routed = 0
+        self.flips = self.routed = self.pushed = self.popped = 0
 
     def route(self, real, moe, xt, k):
         probs, topk_p, topk_e = real(moe, xt, k)
         if self.mode == "record":
             self.picks.append(topk_e)
+            self.pushed += 1
         elif self.mode == "replay":
             forced = self.picks.popleft()
+            self.popped += 1
             self.flips += int((forced.sort(-1).values
                                != topk_e.sort(-1).values).any(-1).sum())
             self.routed += topk_e.shape[0]
@@ -2385,6 +2464,15 @@ class RoutingTape:
             yield
         finally:
             self.mode = None
+
+    def drained(self, label: str) -> None:
+        """Every recorded call replayed once (else AssertionError): the
+        paths routed in the same order, as many times."""
+        if self.picks or self.popped != self.pushed:
+            raise AssertionError(f"{label}: the routing tape holds "
+                                 f"{len(self.picks)} picks after "
+                                 f"{self.pushed} recorded and {self.popped} "
+                                 "replayed calls")
 
 
 def lm_fp32(api, params, batch, prefill_step, run: LMRun):
@@ -2690,96 +2778,173 @@ def lm_path(run: LMRun) -> dict:
     return counts, by_dtype, device_ms
 
 
-def _train_model(arch: str):
-    """``arch`` at full width and depth on the card, random float32 weights
-    from seed 0, every parameter trainable."""
-    api = get_model(get_arch(arch))
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    return api, make_trainable(api.init_params(gen, torch.float32, "cuda"))
+def train_launches(cfg, n_micro: int = 1, steps: int = 1) -> dict:
+    """Each kernel's launches in ``steps`` train steps of ``n_micro``
+    microbatches of ``cfg`` on the kernel path.  A forward launches flash
+    once an attention call (a decoder layer's; the hybrid's shared block
+    once a super-block; the encoder-decoder's encoder layers, and its
+    decoder layers twice, self and cross) and ``ssd_scan`` once a Mamba-2
+    layer; with remat each block runs its forward again in the backward
+    (the backward itself differentiates the plain math, no kernel)."""
+    if cfg.family == "ssm":
+        forward = {"ssd_scan": cfg.n_layers}
+    elif cfg.family == "hybrid":
+        forward = {"ssd_scan": cfg.n_layers,
+                   "flash_attention": cfg.n_layers // cfg.attn_every}
+    elif cfg.family == "encdec":
+        forward = {"flash_attention": cfg.n_encoder_layers + 2 * cfg.n_layers}
+    else:
+        forward = {"flash_attention": cfg.n_layers}
+    times = (2 if cfg.remat else 1) * n_micro * steps
+    return {name: n * times for name, n in forward.items()}
 
 
-def _train_batch(vocab: int) -> dict:
-    chunk = torch.from_numpy(SyntheticTokens(vocab, seed=0).batch(
-        TRAIN_B, TRAIN_S)).cuda()
-    return {"tokens": chunk[:, :-1], "labels": chunk[:, 1:]}
+def _train_model(cfg, device: str = "cuda"):
+    """``cfg`` on ``device``, random float32 weights from seed 0, every
+    parameter trainable."""
+    api = get_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    return api, make_trainable(api.init_params(gen, torch.float32, device))
 
 
-def _launched(label: str, kernel: str, want: int, dtype: str) -> None:
-    """Hold the launch counts since the last reset to ``want`` launches of
-    ``kernel``, all of ``dtype``, and no other kernel; then reset."""
+def _train_batch(cfg, b: int = TRAIN_B, s: int = TRAIN_S,
+                 device: str = "cuda", source=None, gen=None) -> dict:
+    """tokens and labels (b, s), the next batch of ``source`` (default: the
+    first of the synthetic stream of seed 0); for the encoder-decoder also
+    its frames (b, encoder_seq, d_model), N(0, FRAME_STD^2) from ``gen``,
+    on its device (default: seed 0 on ``device``)."""
+    if source is None:
+        source = SyntheticTokens(cfg.vocab_size, seed=0)
+    chunk = torch.from_numpy(source.batch(b, s)).to(device)
+    batch = {"tokens": chunk[:, :-1], "labels": chunk[:, 1:]}
+    if cfg.family == "encdec":
+        if gen is None:
+            gen = torch.Generator(device=device).manual_seed(0)
+        batch["extra"] = torch.randn((b, cfg.encoder_seq, cfg.d_model),
+                                     generator=gen,
+                                     device=gen.device) * FRAME_STD
+    return batch
+
+
+def _launched(label: str, wants: dict, dtype: str) -> None:
+    """Hold the launch counts since the last reset to ``wants`` (kernel ->
+    launches), all of ``dtype``, and no other kernel; then reset."""
     counts = {fn.__name__[:-5]: fn.launches for fn in COUNTED}
-    by_dtype = dict(next(fn for fn in COUNTED
-                         if fn.__name__[:-5] == kernel).launches_by_dtype)
-    others = {k: n for k, n in counts.items() if k != kernel and n}
-    if counts[kernel] != want or by_dtype[dtype] != want or others:
-        raise AssertionError(f"training {label}: {kernel} launched "
-                             f"{counts[kernel]} times ({by_dtype}), expected "
-                             f"{want} in {dtype}; others {others}")
-    TRAIN_LAUNCHES.setdefault(kernel, {"float32": 0, "bfloat16": 0})[
-        dtype] += want
+    by_dtype = {fn.__name__[:-5]: dict(fn.launches_by_dtype)
+                for fn in COUNTED if fn.__name__[:-5] in wants}
+    if any(n != wants.get(k, 0) for k, n in counts.items()) or any(
+            by_dtype[k].get(dtype, 0) != n for k, n in wants.items()):
+        raise AssertionError(f"training {label}: launches {counts} (by type "
+                             f"{by_dtype}), expected {wants} in {dtype} and "
+                             "no other kernel")
+    for kernel, n in wants.items():
+        TRAIN_LAUNCHES.setdefault(kernel, {"float32": 0, "bfloat16": 0})[
+            dtype] += n
     reset_counts()
 
 
 TRAIN_LAUNCHES: dict = {}
 
 
-def train_fp32_gate(arch: str, kernel: str) -> None:
-    """(a) One fp32 ``make_train_step`` from the same weights and batch on
-    the kernel path and on the reference's math (``use_kernel=False``):
-    the losses within TRAIN_LOSS_RTOL, each leaf's gradient within
-    TRAIN_GRAD_TOL x its max |g|.  A model with Mamba-2 layers also takes
-    the step with the plain path's chunked scan in float64 (forward and
-    backward): the reference's chunked form in fp32 loses up to some 1e-3
-    of a gradient's size where exp(da_cum[-1] - da_cum) takes the
-    difference of two cumulative sums of up to ~-3000 (the kernel keeps
-    that sum in fp64), and both fp32 paths differentiate that form.  The
-    plain path's own largest distance from the float64 gradients, over
-    every leaf, is that rounding's size; two fp32 evaluations may each lie
-    that far, on either side, so there the gate widens by twice it (as
-    ``lm_fp32`` widens the serving gate by the plain path's distance from
-    a float64 scan).  The kernel path launches the kernel twice a layer
-    (the forward and remat's recompute), the plain paths never."""
-    api, params = _train_model(arch)
-    batch = _train_batch(api.cfg.vocab_size)
-    n_layers = api.cfg.n_layers
+def fp32_gate_steps(api, params, batch, after, n_micro: int = 1) -> dict:
+    """One fp32 ``make_train_step`` of ``n_micro`` microbatches from
+    ``params`` and ``batch`` on the kernel path, on the reference's math
+    (``use_kernel=False``) and, for a model with Mamba-2 layers, on that
+    math with its chunked scan in float64; ``params`` is the kernel path's
+    (the others take copies).  An MoE model's expert picks are recorded on
+    the kernel path's step and replayed on the plain path's (RoutingTape,
+    C-R31): under remat each layer routes in the forward and again in its
+    recompute, in reverse layer order, on both paths alike, so the tape
+    must end empty with every recorded call replayed once.  ``after(path)``
+    runs after each path's step.  Returns {path: (loss, AdamW's first
+    moment by name)} and, under "flips", the routings whose own picks
+    differ from the replayed ones and all routings of the replay."""
     names = ["kernel", "plain"]
     if api.cfg.family in ("ssm", "hybrid"):
         names.append("fp64 scan")
     copies = {name: copy.deepcopy(params) for name in names[1:]}
     copies["kernel"] = params
     del params
+    tape = RoutingTape()
     out = {}
-    for name in names:
-        step = make_train_step(dataclasses.replace(
-            api, loss=partial(api.loss, use_kernel=name == "kernel")), 1)
-        p = copies.pop(name)
-        opt = adamw.init(dict(p.named_parameters()))
-        scan = plain_scan_in_fp64() if name == "fp64 scan" \
-            else nullcontext()
-        with scan:
-            _, opt, metrics = step(p, opt, batch)
-        out[name] = (float(metrics["loss"]), opt.m)
-        _launched(f"{arch} fp32 {name} path", kernel,
-                  2 * n_layers if name == "kernel" else 0, "float32")
-        del opt, p
-        torch.cuda.empty_cache()
+    with tape.installed():
+        for name in names:
+            step = make_train_step(dataclasses.replace(
+                api, loss=partial(api.loss, use_kernel=name == "kernel")),
+                n_micro)
+            p = copies.pop(name)
+            opt = adamw.init(dict(p.named_parameters()))
+            routing = tape.recording(name == "kernel") if api.cfg.is_moe \
+                else nullcontext()
+            scan = plain_scan_in_fp64() if name == "fp64 scan" \
+                else nullcontext()
+            with routing, scan:
+                _, opt, metrics = step(p, opt, batch)
+            out[name] = (float(metrics["loss"]), opt.m)
+            after(name)
+            del opt, p
+            torch.cuda.empty_cache()
+    if api.cfg.is_moe:
+        tape.drained(f"training {api.cfg.name}")
+        out["flips"] = (tape.flips, tape.routed)
+    return out
+
+
+def train_fp32_gate(cfg, label: str, n_micro: int = 1,
+                    seq: int = TRAIN_S) -> None:
+    """(a) ``fp32_gate_steps`` on the card from ``cfg``'s weights and first
+    batch (B TRAIN_B x ``seq``), in ``n_micro`` microbatches: the losses
+    within TRAIN_LOSS_RTOL, each leaf's gradient within TRAIN_GRAD_TOL x
+    its max |g| (a ZERO_GRAD_LEAVES leaf: x at least ZERO_GRAD_FLOOR x
+    the model's largest).  A model with
+    Mamba-2 layers also takes the step with the plain path's chunked scan
+    in float64 (forward and backward): the reference's chunked form in
+    fp32 loses up to some 1e-3 of a gradient's size where
+    exp(da_cum[-1] - da_cum) takes the difference of two cumulative sums
+    of up to ~-3000 (the kernel keeps that sum in fp64), and both fp32
+    paths differentiate that form.  The
+    plain path's own largest distance from the float64 gradients, over
+    every leaf, is that rounding's size; two fp32 evaluations may each lie
+    that far, on either side, so there the gate widens by twice it (as
+    ``lm_fp32`` widens the serving gate by the plain path's distance from
+    a float64 scan).  The kernel path launches ``train_launches`` (each
+    forward's launches twice: remat's recompute), the plain paths none."""
+    api, params = _train_model(cfg)
+    batch = _train_batch(cfg, s=seq)
+    wants = train_launches(cfg, n_micro)
+
+    def after(name: str) -> None:
+        _launched(f"{label} fp32 {name} path", {
+            k: n if name == "kernel" else 0 for k, n in wants.items()},
+            "float32")
+
+    out = fp32_gate_steps(api, params, batch, after, n_micro)
+    del params
 
     def gap(a: str, b: str) -> dict:
-        """max |a - b| over max |b|, leaf by leaf (of (1 - b1)·g)."""
+        """max |a - b| over max |b|, leaf by leaf (of (1 - b1)·g); on a
+        ZERO_GRAD_LEAVES leaf over at least ZERO_GRAD_FLOOR x the model's
+        largest max |b|."""
+        scale = {n: m.abs().max().item() for n, m in out[b][1].items()}
+        floor = ZERO_GRAD_FLOOR * max(scale.values())
         return {n: (out[a][1][n] - m).abs().max().item()
-                / max(m.abs().max().item(), 1e-30)
+                / max(scale[n], floor if n.endswith(ZERO_GRAD_LEAVES) else 0,
+                      1e-30)
                 for n, m in out[b][1].items()}
 
     loss_rel = abs(out["kernel"][0] - out["plain"][0]) / abs(out["plain"][0])
     between = gap("kernel", "plain")
     worst_name = max(between, key=between.get)
-    text = (f"{arch} fp32 (TF32 off), one step, B {TRAIN_B} x S {TRAIN_S}: "
-            f"loss kernel path {out['kernel'][0]:.7f}, plain path "
-            f"{out['plain'][0]:.7f} (rel {loss_rel:.3g}, gate "
-            f"{TRAIN_LOSS_RTOL}); gradients kernel vs plain path, worst "
-            f"leaf {worst_name}: {between[worst_name]:.3g} x its max |g|")
+    tokens = tuple(batch["tokens"].shape)
+    text = (f"{label} fp32 (TF32 off), {cfg.n_layers} layers, one step, "
+            f"B {tokens[0]} x S {tokens[1]} in {n_micro} microbatch"
+            f"{'es' if n_micro > 1 else ''}: loss kernel path "
+            f"{out['kernel'][0]:.7f}, plain path {out['plain'][0]:.7f} (rel "
+            f"{loss_rel:.3g}, gate {TRAIN_LOSS_RTOL}); gradients kernel vs "
+            f"plain path, worst leaf {worst_name}: {between[worst_name]:.3g} "
+            "x its max |g|")
     noise = 0.0
-    if len(names) == 3:
+    if "fp64 scan" in out:
         kernel_off = gap("kernel", "fp64 scan")
         noise = max(gap("plain", "fp64 scan").values())
         text += (f"; from the fp64 scan's gradients the plain path lies up "
@@ -2787,23 +2952,39 @@ def train_fp32_gate(arch: str, kernel: str) -> None:
                  f"{max(kernel_off.values()):.3g}")
     gate = TRAIN_GRAD_TOL + 2 * noise
     text += f" (gate {TRAIN_GRAD_TOL} + 2 x {noise:.3g})"
+    zero = [n for n in between if n.endswith(ZERO_GRAD_LEAVES)]
+    if zero:
+        plain = out["plain"][1]
+        size = max(plain[n].abs().max().item() for n in zero) / max(
+            m.abs().max().item() for m in plain.values())
+        text += (f"; {len(zero)} leaves {ZERO_GRAD_LEAVES} (zero gradient in "
+                 f"exact arithmetic) gated against {ZERO_GRAD_FLOOR} x the "
+                 f"model's largest max |g|: the plain path's max |g| there "
+                 f"{size:.3g} of the largest, the paths "
+                 f"{max(between[n] for n in zero):.3g} x the floor apart")
+    if "flips" in out:
+        flips, routed = out["flips"]
+        text += (f"; the plain path ran the kernel path's expert picks "
+                 f"(forward and recompute, every one replayed): its own "
+                 f"differ for {flips} of {routed} token routings "
+                 "(near-ties)")
     phase("train", text)
     if not loss_rel <= TRAIN_LOSS_RTOL or not between[worst_name] <= gate:
-        raise AssertionError(f"training {arch}: fp32 kernel path vs plain "
+        raise AssertionError(f"training {label}: fp32 kernel path vs plain "
                              f"path loss {loss_rel:.3g}, gradient "
                              f"{between[worst_name]:.3g} ({worst_name})")
     del out
     torch.cuda.empty_cache()
 
 
-def train_bf16_run(arch: str, kernel: str) -> list:
+def train_bf16_run(arch: str) -> list:
     """(b) ``train()`` for TRAIN_STEPS bf16 steps in TRAIN_MICRO
     microbatches, with an async checkpoint at step TRAIN_CUT (joined);
     its step-20 checkpoint is removed, as if the run had been cut after
     step TRAIN_CUT, and a second ``train(resume=True)`` runs steps
     TRAIN_CUT + 1 .. TRAIN_STEPS: its losses must be the first run's, bit
     for bit, and the mean loss of the last 5 steps below the first 5's."""
-    per_step = 2 * get_arch(arch).n_layers * TRAIN_MICRO
+    per_step = train_launches(get_arch(arch), TRAIN_MICRO)
     kw = dict(batch_size=TRAIN_B, seq_len=TRAIN_S, smoke=False,
               n_micro=TRAIN_MICRO, param_dtype=torch.bfloat16, log_every=5,
               seed=0, device="cuda")
@@ -2812,7 +2993,8 @@ def train_bf16_run(arch: str, kernel: str) -> list:
         _, _, losses = train(arch, steps=TRAIN_STEPS, ckpt_dir=ckpt,
                              ckpt_every=TRAIN_CUT, **kw)
         first_s = time.perf_counter() - t0
-        _launched(f"{arch} bf16 run", kernel, per_step * TRAIN_STEPS,
+        _launched(f"{arch} bf16 run", {k: n * TRAIN_STEPS
+                                       for k, n in per_step.items()},
                   "bfloat16")
         files = sorted(Path(ckpt).glob("step_*"))
         size = sum(f.stat().st_size for f in files) / 2 ** 30
@@ -2824,8 +3006,9 @@ def train_bf16_run(arch: str, kernel: str) -> list:
                               ckpt_dir=ckpt, ckpt_every=10 * TRAIN_STEPS,
                               resume=True, **kw)
         resumed_s = time.perf_counter() - t0
-        _launched(f"{arch} resumed run", kernel,
-                  per_step * (TRAIN_STEPS - TRAIN_CUT), "bfloat16")
+        _launched(f"{arch} resumed run", {
+            k: n * (TRAIN_STEPS - TRAIN_CUT) for k, n in per_step.items()},
+            "bfloat16")
     torch.cuda.empty_cache()
     first5, last5 = np.mean(losses[:5]), np.mean(losses[-5:])
     equal = resumed == losses[TRAIN_CUT:]
@@ -2847,63 +3030,90 @@ def train_bf16_run(arch: str, kernel: str) -> list:
     return losses
 
 
-def train_timing(arch: str, kernel: str) -> float:
-    """(c) The bf16 step of (b) timed: CUDA events around each of
-    TRAIN_STEPS steps (median of steps 3-20) and tokens/s; the split into
-    forward (the loss, autograd recording), backward (``autograd.grad``)
-    and the rest (optimizer, accumulation, norm: the step less
-    TRAIN_MICRO x forward + backward), each a median of 5; peak memory;
-    the kernel's launches a step.  Returns the step's ms."""
-    api, params = _train_model(arch)
+def train_timing(cfg, label: str, steps: int = TRAIN_STEPS,
+                 seq: int = TRAIN_S) -> float:
+    """(c) ``steps`` bf16 steps of B TRAIN_B x ``seq`` (the synthetic
+    stream of seed 0; an encoder-decoder's frames from seed 0) in
+    TRAIN_MICRO microbatches, timed: CUDA events around each step (median
+    of steps 3 on) and tokens/s; the split into forward (the loss,
+    autograd recording), backward (``autograd.grad``) and the rest
+    (optimizer, accumulation, norm: the step less TRAIN_MICRO x forward +
+    backward), each a median of 5; peak memory; the kernels' launches a
+    step.  The mean loss of the last 5 steps must lie below the first 5's.
+    Returns the step's ms."""
+    api, params = _train_model(cfg)
     params.to(torch.bfloat16)
     opt = adamw.init(dict(params.named_parameters()))
     step = make_train_step(api, TRAIN_MICRO, param_dtype=torch.bfloat16)
-    source = SyntheticTokens(api.cfg.vocab_size, seed=0)
-    batches = [source.batch(TRAIN_B, TRAIN_S) for _ in range(TRAIN_STEPS)]
+    source = SyntheticTokens(cfg.vocab_size, seed=0)
+    # tokens on the host (each step's copied before its events), frames on
+    # the card
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batches = [_train_batch(cfg, TRAIN_B, seq, "cpu", source, gen)
+               for _ in range(steps)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for chunk in batches:
-        chunk = torch.from_numpy(chunk).cuda()
+    times, losses = [], []
+    for batch in batches:
+        batch = {k: v.cuda() for k, v in batch.items()}
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        params, opt, metrics = step(params, opt, {"tokens": chunk[:, :-1],
-                                                  "labels": chunk[:, 1:]})
+        params, opt, metrics = step(params, opt, batch)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    per_step = 2 * api.cfg.n_layers * TRAIN_MICRO
-    _launched(f"{arch} timed steps", kernel, per_step * TRAIN_STEPS,
+    per_step = train_launches(cfg, TRAIN_MICRO)
+    _launched(f"{label} timed steps", {k: n * steps
+                                       for k, n in per_step.items()},
               "bfloat16")
     step_ms = float(np.median(times[2:]))
     mb = TRAIN_B // TRAIN_MICRO
-    micro = {"tokens": chunk[:mb, :-1], "labels": chunk[:mb, 1:]}
+    micro = {k: v[:mb] for k, v in batch.items()}
     leaves = [p for p in params.parameters()]
 
     def forward():
-        return api.loss(params, micro["tokens"], micro["labels"])
+        return api.loss(params, micro["tokens"], micro["labels"],
+                        micro.get("extra"))
 
     fwd_ms = median_event_ms(forward, 5)
     both_ms = median_event_ms(lambda: torch.autograd.grad(forward(), leaves),
                               5)
     reset_counts()
     rest_ms = step_ms - TRAIN_MICRO * both_ms
-    phase("train", f"{arch} bf16 step, B {TRAIN_B} x S {TRAIN_S} in "
-                   f"{TRAIN_MICRO} microbatches, eager (CUDA events, median "
-                   f"of steps 3-{TRAIN_STEPS}): {step_ms:.2f} ms, "
-                   f"{TRAIN_B * TRAIN_S / step_ms * 1e3:.0f} tokens/s; a "
+    first5, last5 = np.mean(losses[:5]), np.mean(losses[-5:])
+    frames = (f" over {cfg.encoder_seq} frames"
+              if cfg.family == "encdec" else "")
+    phase("train", f"{label} bf16 step, {cfg.n_layers} layers, B {TRAIN_B} x "
+                   f"S {seq}{frames} in {TRAIN_MICRO} microbatches, eager "
+                   f"(CUDA events, median of steps 3-{steps}): "
+                   f"{step_ms:.2f} ms, "
+                   f"{TRAIN_B * seq / step_ms * 1e3:.0f} tokens/s; a "
                    f"microbatch's forward {fwd_ms:.2f} ms, backward "
                    f"{both_ms - fwd_ms:.2f} ms (remat's recompute in it); "
                    f"optimizer, accumulation and norm {rest_ms:.2f} ms; peak "
-                   f"memory {peak:.2f} GiB; {kernel} launches a step "
-                   f"{per_step} bf16 = {TRAIN_MICRO} microbatches x "
-                   f"({api.cfg.n_layers} forward + {api.cfg.n_layers} remat "
-                   f"recompute); {CARD['smi']}")
+                   f"memory {peak:.2f} GiB; launches a step (bf16) "
+                   + ", ".join(f"{k} {n}" for k, n in per_step.items())
+                   + f" = {TRAIN_MICRO} microbatches x (forward + remat "
+                   f"recompute) x " + ", ".join(
+                       f"{n // (2 * TRAIN_MICRO)}" for n in per_step.values())
+                   + f"; losses {' '.join(f'{x:.4f}' for x in losses)}, "
+                   f"mean of steps 1-5 {first5:.4f}, of steps "
+                   f"{steps - 4}-{steps} {last5:.4f}; {CARD['smi']}")
+    if not last5 < first5:
+        raise AssertionError(f"training {label}: the loss did not fall "
+                             f"({first5:.4f} -> {last5:.4f})")
     del params, opt, leaves
     torch.cuda.empty_cache()
     return step_ms
+
+
+def _launch_text(label: str, by_type: dict) -> str:
+    return (f"training {label}: " + "; ".join(
+        f"{k} {sum(v.values())} launches by type {v}"
+        for k, v in by_type.items()) + "; no other kernel")
 
 
 def train_path() -> tuple[dict, dict]:
@@ -2911,18 +3121,46 @@ def train_path() -> tuple[dict, dict]:
     before each part and held after it.  Returns each model's launches of
     its kernel, by type, and its bf16 run's losses and timed step ms."""
     by_path, runs = {}, {}
-    for arch, kernel in TRAIN_RUNS:
+    for arch in TRAIN_RUNS:
         TRAIN_LAUNCHES.clear()
         reset_counts()
-        train_fp32_gate(arch, kernel)
-        losses = train_bf16_run(arch, kernel)
-        runs[arch] = {"losses": losses, "step_ms": train_timing(arch, kernel)}
-        by_path[arch] = {kernel: dict(TRAIN_LAUNCHES[kernel])}
-        phase("launches", f"training {arch}: {kernel} "
-                          f"{sum(TRAIN_LAUNCHES[kernel].values())} launches "
-                          f"by type {TRAIN_LAUNCHES[kernel]}; no other "
-                          "kernel")
+        train_fp32_gate(get_arch(arch), arch)
+        losses = train_bf16_run(arch)
+        runs[arch] = {"losses": losses,
+                      "step_ms": train_timing(get_arch(arch), arch)}
+        by_path[arch] = copy.deepcopy(TRAIN_LAUNCHES)
+        phase("launches", _launch_text(arch, by_path[arch]))
     return by_path, runs
+
+
+def train_rows_path() -> dict:
+    """Phase 8c: each TRAIN_ROWS row's fp32 gate (a) at its gate depth and
+    its bf16 run of TRAIN_ROW_STEPS steps, timed (c); counts set to 0
+    before each part and held after it.  Returns each row's launches by
+    kernel and type."""
+    by_path = {}
+    for row in TRAIN_ROWS:
+        TRAIN_LAUNCHES.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        full = get_arch(row.arch)
+        cfg = dataclasses.replace(full, **dict(row.changes))
+        gate_cfg = dataclasses.replace(
+            full, n_layers=row.gate_layers or cfg.n_layers)
+        n_params = sum(p.numel() for p in get_model(cfg).init_params(
+            torch.Generator(), torch.float32, "meta").parameters())
+        phase("train", f"{row.label}: {cfg.n_layers} of {full.n_layers} "
+                       f"layers, d_model {cfg.d_model}, {_lm_shape(cfg)}, "
+                       f"vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B "
+                       f"parameters, random from seed 0; the fp32 gate at "
+                       f"{gate_cfg.n_layers} layers")
+        train_fp32_gate(gate_cfg, row.label, row.gate_micro, row.seq)
+        train_timing(cfg, row.label, TRAIN_ROW_STEPS, row.seq)
+        by_path[row.label] = copy.deepcopy(TRAIN_LAUNCHES)
+        phase("launches", _launch_text(row.label, by_path[row.label]))
+        phase("train", f"{row.label}: {time.perf_counter() - t0:.1f} s "
+                       "(host clock)")
+    return by_path
 
 
 def mesh_phase(runs: dict) -> dict:
@@ -2951,8 +3189,8 @@ def mesh_phase(runs: dict) -> dict:
     kw = dict(steps=MESH_STEPS, batch_size=TRAIN_B, seq_len=TRAIN_S,
               smoke=False, n_micro=TRAIN_MICRO, param_dtype=torch.bfloat16,
               log_every=MESH_STEPS, seed=0)
-    for arch, kernel in TRAIN_RUNS:
-        per_run = 2 * get_arch(arch).n_layers * TRAIN_MICRO * MESH_STEPS
+    for arch in TRAIN_RUNS:
+        per_run = train_launches(get_arch(arch), TRAIN_MICRO, MESH_STEPS)
         TRAIN_LAUNCHES.clear()
         reset_counts()
         t0 = time.perf_counter()
@@ -2960,7 +3198,7 @@ def mesh_phase(runs: dict) -> dict:
         for name, where in (("no mesh", {"device": "cuda"}),
                             ("local mesh", {"mesh": mesh})):
             out[name] = train(arch, **kw, **where)
-            _launched(f"{arch} {name} run", kernel, per_run, "bfloat16")
+            _launched(f"{arch} {name} run", per_run, "bfloat16")
         secs = time.perf_counter() - t0
         (p0, o0, l0), (p1, o1, l1) = out.values()
         s0, s1 = p0.state_dict(), p1.state_dict()
@@ -2980,12 +3218,13 @@ def mesh_phase(runs: dict) -> dict:
                                   for k, v in same.items())
                       + f" (losses also phase 8b's first {MESH_STEPS}); "
                       f"{replicated} of {len(shardings)} parameter leaves "
-                      f"resolve to replicated; {kernel} launches "
-                      f"{TRAIN_LAUNCHES[kernel]}")
+                      f"resolve to replicated; launches "
+                      + ", ".join(f"{k} {v}" for k, v in
+                                  TRAIN_LAUNCHES.items()))
         if not all(same.values()) or replicated != len(shardings):
             raise AssertionError(f"mesh {arch}: {same}, {replicated} of "
                                  f"{len(shardings)} leaves replicated")
-        by_path[f"mesh {arch}"] = {kernel: dict(TRAIN_LAUNCHES[kernel])}
+        by_path[f"mesh {arch}"] = copy.deepcopy(TRAIN_LAUNCHES)
         del out, p0, p1, o0, o1, s0, s1
         torch.cuda.empty_cache()
     return by_path
@@ -3120,7 +3359,7 @@ def roofline_walks() -> dict:
         if run.timed:
             for call, acc in _lm_walks(run).items():
                 out[f"{run.label} {call}"] = acc.to_dict()
-    for arch, _ in TRAIN_RUNS:
+    for arch in TRAIN_RUNS:
         out[f"train {arch} step"] = _train_walk(arch).to_dict()
     return out
 
@@ -3188,7 +3427,7 @@ def roofline_phase(lm_ms: dict, runs: dict, walks: CpuProcess) -> None:
                 for run in LM_RUNS if run.timed
                 for call in ("prefill", "decode step")}
     measured |= {f"train {arch} step": (runs[arch]["step_ms"], "eager")
-                 for arch, _ in TRAIN_RUNS}
+                 for arch in TRAIN_RUNS}
     below = []
     for label, (ms, how) in measured.items():
         acc = walked[label]
@@ -4924,15 +5163,21 @@ def _main(name: str, walks: CpuProcess, started: float) -> None:
     # one-card mesh (counts held inside).
     train_counts, train_runs = train_path()
     mesh_counts = mesh_phase(train_runs)
+    stage("phases 8b, 10")
+
+    # Main path 5c: training of the hybrid, encoder-decoder, MoE and MLA
+    # families (counts held inside).
+    row_counts = train_rows_path()
+    stage("phase 8c")
     for label, counts in ({f"train {arch}": c for arch, c in
-                           train_counts.items()} | mesh_counts).items():
+                           (train_counts | row_counts).items()}
+                          | mesh_counts).items():
         for kernel, dtypes in counts.items():
-            by_path[label] = {kernel: sum(dtypes.values())}
+            by_path.setdefault(label, {})[kernel] = sum(dtypes.values())
             for dtype, n in dtypes.items():
                 by_dtype[kernel][dtype] += n
 
     # Phase 11: the roofline of every timed path, walked on meta.
-    stage("phases 8b, 10")
     roofline_phase(lm_ms, train_runs, walks)
     stage("phase 11")
 

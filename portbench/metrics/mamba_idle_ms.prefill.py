@@ -1,0 +1,11 @@
+"""mamba_idle_ms.prefill: device idle ms a request inside the Mamba-2
+layers' device intervals (``rt.mamba``: from each layer's first operation
+to its last), in the span slice (``spans.py``): the time the card waits on
+the host's issue within the layer."""
+
+from portbench import spans
+
+
+def read(r):
+    s = spans.of(r)
+    return None if s is None else s.idle_ms("rt.mamba")

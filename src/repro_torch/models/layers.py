@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..kernels import autograd as kernel_autograd
 from ..kernels.ref import MASKED
 from ..launch import sharding as shp
@@ -443,6 +444,8 @@ def _moe_dispatch(router: torch.Tensor, xt: torch.Tensor, cfg, cap: int):
     rank = (torch.cumsum(onehot, dim=1) - onehot).gather(
         0, flat_e[None, :])[0]
     keep = rank < cap
+    tracing.count("moe.pairs_routed", t * k)
+    tracing.count("moe.pairs_kept", keep.sum)
     slot = torch.where(keep, rank, cap)
 
     # kept pairs land in distinct slots (the reference's add into zeros is
@@ -503,23 +506,28 @@ def moe_layer(moe: MoE, x: torch.Tensor, cfg,
         capacity_factor = cfg.moe_capacity_factor
     cap = moe_capacity(t, cfg, capacity_factor)
     every = (None,) * 3
-    buf, aux, *route = shp.local_call(
-        functools.partial(_moe_dispatch, cfg=cfg, cap=cap),
-        (moe.router, x.reshape(t, d)), ((None, None), (None, None)),
-        (every, (), (None,), (None,), (None,), (None,)))
-    mesh = shp.active_mesh()
-    model_size = mesh.shape.get("model", 1) if mesh is not None else 1
-    if model_size > 1 and cfg.n_experts % model_size == 0:
-        buf = constrain(buf, "model", None, None)
-    elif cfg.moe_buffer_shard == "capacity":
-        buf = constrain(buf, None, "model", None)
-    elif cfg.moe_buffer_shard == "capacity2d":
-        buf = constrain(buf, None, ("data", "model"), None)
-    ew = moe.experts
-    out_buf = _moe_experts(buf, ew["w1"], ew["w3"], ew["w2"])
-    out = shp.local_call(
-        functools.partial(_moe_combine, k=cfg.top_k), (out_buf, *route),
-        (every, (None,), (None,), (None,), (None,)), (None, None))
+    with tracing.span("moe"):
+        with tracing.span("moe.dispatch"):
+            buf, aux, *route = shp.local_call(
+                functools.partial(_moe_dispatch, cfg=cfg, cap=cap),
+                (moe.router, x.reshape(t, d)), ((None, None), (None, None)),
+                (every, (), (None,), (None,), (None,), (None,)))
+        mesh = shp.active_mesh()
+        model_size = mesh.shape.get("model", 1) if mesh is not None else 1
+        if model_size > 1 and cfg.n_experts % model_size == 0:
+            buf = constrain(buf, "model", None, None)
+        elif cfg.moe_buffer_shard == "capacity":
+            buf = constrain(buf, None, "model", None)
+        elif cfg.moe_buffer_shard == "capacity2d":
+            buf = constrain(buf, None, ("data", "model"), None)
+        ew = moe.experts
+        with tracing.span("moe.experts"):
+            out_buf = _moe_experts(buf, ew["w1"], ew["w3"], ew["w2"])
+        with tracing.span("moe.combine"):
+            out = shp.local_call(
+                functools.partial(_moe_combine, k=cfg.top_k),
+                (out_buf, *route),
+                (every, (None,), (None,), (None,), (None,)), (None, None))
     return out.reshape(b, s, d), aux
 
 

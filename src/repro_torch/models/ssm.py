@@ -27,6 +27,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..kernels import autograd as kernel_autograd
 from ..kernels.ref import per_head, ssd_scan_ref
 from ..launch import sharding as shp
@@ -168,29 +169,35 @@ def ssm_forward(params, x: torch.Tensor, cfg, *, use_kernel: bool = True):
     ``ssd_chunked`` (chunk ``cfg.ssm_chunk``, or the whole length when it
     does not divide L, as the reference falls back)."""
     bsz, slen, _ = x.shape
-    z, xbc, dt = _split_proj(cfg, dense(x, params["in_proj"]))
-    xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"])
-    x_in, b, c = _heads(cfg, F.silu(xbc))
-    dt = F.softplus(dt.float() + params["dt_bias"])
-    chunk = cfg.ssm_chunk if slen % cfg.ssm_chunk == 0 else slen
-    if use_kernel:
-        bat, mod = shp.split_elems(shp.active_mesh(), bsz, cfg.ssm_nheads,
-                                   *(() if cfg.ssm_ngroups == 1
-                                     else (cfg.ssm_ngroups,)))
-        heads = (bat, None, mod, None)
-        groups = (bat, None, mod if cfg.ssm_ngroups > 1 else None, None)
-        y, state = shp.local_call(
-            lambda *a: kernel_autograd.ssd_scan(
-                *a, math=functools.partial(ssd_chunked, chunk=chunk)),
-            (x_in, dt, params["A_log"], b, c),
-            (heads, (bat, None, mod), (mod,), groups, groups),
-            (heads, (bat, mod, None, None)))
-    else:
-        y, state = ssd_chunked(x_in, dt, params["A_log"], b, c, chunk)
-    y = shp.merge_heads(y + params["D"].to(x.dtype)[:, None] * x_in)
-    y = rmsnorm(y * F.silu(z), params["ssm_norm"], cfg.norm_eps)
-    return constrain(dense(y, params["out_proj"]), "batch", None, None), \
-        {"state": state, "conv": new_conv}
+    with tracing.span("mamba"):
+        z, xbc, dt = _split_proj(cfg, dense(x, params["in_proj"]))
+        with tracing.span("mamba.conv"):
+            xbc, new_conv = _causal_conv(xbc, params["conv_w"],
+                                         params["conv_b"])
+            xbc = F.silu(xbc)
+        x_in, b, c = _heads(cfg, xbc)
+        dt = F.softplus(dt.float() + params["dt_bias"])
+        chunk = cfg.ssm_chunk if slen % cfg.ssm_chunk == 0 else slen
+        if use_kernel:
+            bat, mod = shp.split_elems(shp.active_mesh(), bsz,
+                                       cfg.ssm_nheads,
+                                       *(() if cfg.ssm_ngroups == 1
+                                         else (cfg.ssm_ngroups,)))
+            heads = (bat, None, mod, None)
+            groups = (bat, None, mod if cfg.ssm_ngroups > 1 else None, None)
+            y, state = shp.local_call(
+                lambda *a: kernel_autograd.ssd_scan(
+                    *a, math=functools.partial(ssd_chunked, chunk=chunk)),
+                (x_in, dt, params["A_log"], b, c),
+                (heads, (bat, None, mod), (mod,), groups, groups),
+                (heads, (bat, mod, None, None)))
+        else:
+            y, state = ssd_chunked(x_in, dt, params["A_log"], b, c, chunk)
+        with tracing.span("mamba.gate"):
+            y = shp.merge_heads(y + params["D"].to(x.dtype)[:, None] * x_in)
+            y = rmsnorm(y * F.silu(z), params["ssm_norm"], cfg.norm_eps)
+        out = constrain(dense(y, params["out_proj"]), "batch", None, None)
+    return out, {"state": state, "conv": new_conv}
 
 
 def _gather_last(x: torch.Tensor, group) -> torch.Tensor:

@@ -61,6 +61,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import tracing
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels import ops
@@ -415,25 +416,27 @@ def make_decoder_lm(cfg: ArchConfig) -> ModelApi:
         cache of ring size ``cache_window(cfg, max_len)`` in the parameters'
         type holding the prompt's keys and values (or MLA latents), and the
         last position's logits (B, 1, V)."""
-        h = _embed(params, cfg, tokens, extra)
-        b, s = h.shape[:2]
-        positions = torch.arange(s, dtype=torch.int32, device=h.device)
-        cache = _placed(cfg, init_cache(b, max_len, h.dtype, h.device))
-        for i, layer in enumerate(params.layers):
-            hn = rmsnorm(h, layer.attn_norm, eps)
-            if mla:
-                out, c_kv, k_rope = mla_prefill(layer.attn, hn, cfg,
-                                                positions,
-                                                use_kernel=use_kernel)
-                _ring_scatter(cache, i, {"ckv": c_kv, "krope": k_rope},
-                              positions)
-            else:
-                out = _attn_prefill(cfg, layer.attn, hn, cache, i, positions,
-                                    use_kernel)
-            h = h + out
-            h = h + _ffn(cfg, layer, rmsnorm(h, layer.mlp_norm, eps))[0]
-        cache["t"] = s
-        return cache, _logits(params, h[:, -1:], cfg)
+        with tracing.span("prefill"):
+            h = _embed(params, cfg, tokens, extra)
+            b, s = h.shape[:2]
+            positions = torch.arange(s, dtype=torch.int32, device=h.device)
+            cache = _placed(cfg, init_cache(b, max_len, h.dtype, h.device))
+            for i, layer in enumerate(params.layers):
+                hn = rmsnorm(h, layer.attn_norm, eps)
+                if mla:
+                    out, c_kv, k_rope = mla_prefill(layer.attn, hn, cfg,
+                                                    positions,
+                                                    use_kernel=use_kernel)
+                    _ring_scatter(cache, i, {"ckv": c_kv, "krope": k_rope},
+                                  positions)
+                else:
+                    out = _attn_prefill(cfg, layer.attn, hn, cache, i,
+                                        positions, use_kernel)
+                h = h + out
+                h = h + _ffn(cfg, layer,
+                             rmsnorm(h, layer.mlp_norm, eps))[0]
+            cache["t"] = s
+            return cache, _logits(params, h[:, -1:], cfg)
 
     def decode_step(params: DecoderLM, cache: dict, tokens: torch.Tensor, *,
                     use_kernel: bool = True):
@@ -566,14 +569,15 @@ def make_ssm_lm(cfg: ArchConfig) -> ModelApi:
                 extra=None, *, use_kernel: bool = True):
         """Run the prompt tokens (B, S) through the SSD scan (one kernel
         launch per layer); returns the cache and the last logits (B, 1, V)."""
-        _no_extra(cfg, extra)
-        h = _embed_tokens(params, tokens)
-        cache = _placed(cfg, init_cache(tokens.shape[0], max_len,
-                                        device=h.device))
-        for i, layer in enumerate(params.layers):
-            h = _mamba_prefill(cfg, layer, h, cache, (i,), use_kernel)
-        cache["t"] = tokens.shape[1]
-        return cache, _logits(params, h[:, -1:], cfg)
+        with tracing.span("prefill"):
+            _no_extra(cfg, extra)
+            h = _embed_tokens(params, tokens)
+            cache = _placed(cfg, init_cache(tokens.shape[0], max_len,
+                                            device=h.device))
+            for i, layer in enumerate(params.layers):
+                h = _mamba_prefill(cfg, layer, h, cache, (i,), use_kernel)
+            cache["t"] = tokens.shape[1]
+            return cache, _logits(params, h[:, -1:], cfg)
 
     def decode_step(params: DecoderLM, cache: dict, tokens: torch.Tensor, *,
                     use_kernel: bool = True):
@@ -651,20 +655,24 @@ def make_hybrid_lm(cfg: ArchConfig) -> ModelApi:
         through the SSD scan, then the shared block through flash
         attention, its keys and values into the super-block's ring layer.
         Returns the cache and the last logits (B, 1, V)."""
-        _no_extra(cfg, extra)
-        h = _embed_tokens(params, tokens)
-        b, s_len = tokens.shape
-        positions = torch.arange(s_len, dtype=torch.int32, device=h.device)
-        cache = _placed(cfg, init_cache(b, max_len, h.dtype, h.device))
-        sh = params.shared
-        for s in range(n_super):
-            for j, layer in enumerate(_mamba(params, s)):
-                h = _mamba_prefill(cfg, layer, h, cache, (s, j), use_kernel)
-            h = h + _attn_prefill(cfg, sh.attn, rmsnorm(h, sh.attn_norm, eps),
-                                  cache, s, positions, use_kernel)
-            h = h + swiglu_mlp(sh.mlp, rmsnorm(h, sh.mlp_norm, eps))
-        cache["t"] = s_len
-        return cache, _logits(params, h[:, -1:], cfg)
+        with tracing.span("prefill"):
+            _no_extra(cfg, extra)
+            h = _embed_tokens(params, tokens)
+            b, s_len = tokens.shape
+            positions = torch.arange(s_len, dtype=torch.int32,
+                                     device=h.device)
+            cache = _placed(cfg, init_cache(b, max_len, h.dtype, h.device))
+            sh = params.shared
+            for s in range(n_super):
+                for j, layer in enumerate(_mamba(params, s)):
+                    h = _mamba_prefill(cfg, layer, h, cache, (s, j),
+                                       use_kernel)
+                h = h + _attn_prefill(cfg, sh.attn,
+                                      rmsnorm(h, sh.attn_norm, eps),
+                                      cache, s, positions, use_kernel)
+                h = h + swiglu_mlp(sh.mlp, rmsnorm(h, sh.mlp_norm, eps))
+            cache["t"] = s_len
+            return cache, _logits(params, h[:, -1:], cfg)
 
     def decode_step(params: DecoderLM, cache: dict, tokens: torch.Tensor, *,
                     use_kernel: bool = True):
